@@ -1,0 +1,194 @@
+"""Fused BLCO MTTKRP: one kernel launch per call over the flat launch stream.
+
+The port of ``repro.kernels.fused``.  The whole per-non-zero pipeline —
+shift+mask de-linearization of the (hi, lo) index words, gather of the N-1
+non-target factor rows, hadamard with the value, discovery of runs of equal
+target index and one update per run — is one CUDA kernel
+(``csrc/fused_mttkrp.cu``).  Two conflict-resolution variants, as in the
+paper:
+
+``segment`` (K1, register analogue, §5.2): runs are reduced in registers
+    and each run issues one atomic update per column into the output.
+``stash`` (K2, hierarchical, §5.1 steps 5-7): for short target modes each
+    CTA accumulates into a shared-memory copy of the whole (I, R) output and
+    merges it once.
+
+Inputs come straight from the device-resident launch cache
+(``LaunchCache.flat()``): no per-call host work, one launch per call.
+
+A wrapper given CUDA tensors launches its kernel or raises; there is no
+fallback.  Given CPU tensors it runs the kernel's plain PyTorch version in
+``ref.py`` (what the tests do).  ``launch_counts`` counts the kernel
+launches per variant, on the card only.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core.counters import record_dispatch
+from repro_torch.core.mttkrp import CONTENTION_THRESHOLD, choose_resolution
+
+from . import ref
+
+VARIANTS = ("segment", "stash")
+# the stash variant is for short target modes (§5.3); its (out_rows, R)
+# stash must also fit one CTA's shared memory on Hopper (227 KB)
+STASH_MAX_ROWS = 4 * CONTENTION_THRESHOLD
+STASH_MAX_BYTES = 227 * 1024
+
+# (vals dtype, factors dtype) -> the C interface's dtype_pair code
+_DTYPE_PAIRS = {
+    (torch.float32, torch.float32): 0,
+    (torch.float64, torch.float64): 1,
+    (torch.float64, torch.float32): 2,
+}
+_MAX_ORDER = 8
+
+launch_counts = {v: 0 for v in VARIANTS}
+
+
+def reset_launch_counts() -> None:
+    """Set every variant's kernel-launch count to 0."""
+    for v in VARIANTS:
+        launch_counts[v] = 0
+
+
+def _variant_for(resolution: str, out_rows: int, *, rank: int,
+                 itemsize: int) -> str:
+    """``stash`` for a hierarchical mode whose (out_rows, rank) stash fits
+    both the row bound and a CTA's shared memory, else ``segment``."""
+    if (resolution == "hierarchical" and out_rows <= STASH_MAX_ROWS
+            and out_rows * rank * itemsize <= STASH_MAX_BYTES):
+        return "stash"
+    return "segment"
+
+
+def _check_inputs(hi, lo, vals, bases, factors, field_bits, field_shifts,
+                  mode):
+    n = len(field_bits)
+    t = hi.shape[0]
+    if not 1 <= n <= _MAX_ORDER:
+        raise ValueError(f"order {n} outside 1..{_MAX_ORDER}")
+    if len(field_shifts) != n or len(factors) != n or not 0 <= mode < n:
+        raise ValueError("field_bits, field_shifts, factors and mode disagree "
+                         "on the tensor order")
+    if hi.dtype != torch.uint32 or lo.dtype != torch.uint32:
+        raise TypeError("index words must be torch.uint32")
+    if bases.dtype != torch.int32:
+        raise TypeError("bases must be torch.int32")
+    if hi.shape != (t,) or lo.shape != (t,) or vals.shape != (t,) \
+            or bases.shape != (t, n):
+        raise ValueError(f"stream shapes disagree: hi {tuple(hi.shape)}, lo "
+                         f"{tuple(lo.shape)}, vals {tuple(vals.shape)}, bases "
+                         f"{tuple(bases.shape)} for order {n}")
+    rank = factors[0].shape[1]
+    for f in factors:
+        if f.dim() != 2 or f.shape[1] != rank:
+            raise ValueError("factors must be (I_n, R) with one R")
+        if f.dtype != factors[0].dtype:
+            raise TypeError("factors must share one dtype")
+    if (vals.dtype, factors[0].dtype) not in _DTYPE_PAIRS:
+        raise TypeError(f"unsupported (vals, factors) dtypes "
+                        f"({vals.dtype}, {factors[0].dtype}); the kernel "
+                        f"takes {sorted(map(str, _DTYPE_PAIRS))}")
+    for x in (hi, lo, vals, bases, *factors):
+        if not x.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
+            field_shifts, mode, out_rows, out_dtype):
+    """Launch one kernel on the tensors' card and return its output."""
+    from .build import load_library
+    lib = load_library().lib
+    n = len(field_bits)
+    t = hi.shape[0]
+    rank = factors[0].shape[1]
+    out = torch.zeros((out_rows, rank), dtype=out_dtype, device=hi.device)
+    ptrs = (ctypes.c_void_p * n)(*(f.data_ptr() for f in factors))
+    shifts = (ctypes.c_int * n)(*field_shifts)
+    widths = (ctypes.c_int * n)(*field_bits)
+    with torch.cuda.device(hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_mttkrp_launch(
+            VARIANTS.index(variant), _DTYPE_PAIRS[(vals.dtype,
+                                                  factors[0].dtype)],
+            hi.data_ptr(), lo.data_ptr(), vals.data_ptr(), bases.data_ptr(),
+            ptrs, n, mode, shifts, widths, t, rank, out_rows, out.data_ptr(),
+            stream)
+    if err:
+        msg = lib.fused_mttkrp_error_string(err).decode()
+        raise RuntimeError(f"fused MTTKRP {variant} kernel launch failed: "
+                           f"{msg} (cudaError {err})")
+    launch_counts[variant] += 1
+    return out
+
+
+def fused_mttkrp_flat(hi, lo, vals, bases, factors, *, field_bits: tuple,
+                      field_shifts: tuple, mode: int, out_rows: int,
+                      resolution: str = "auto"):
+    """Fused MTTKRP over a flat reservation-padded non-zero stream.
+
+    hi/lo: (T,) uint32; vals: (T,); bases: (T, N) int32; factors: N (I_n, R)
+    tensors.  Returns (out_rows, R) at ``promote_types(vals, factors)``.
+    On the card: exactly one kernel launch.  On the CPU: the plain version,
+    whose segment tile is the reference's (the largest divisor of T up to
+    256).
+    """
+    factors = tuple(factors)
+    devices = {x.device for x in (hi, lo, vals, bases, *factors)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if resolution == "auto":
+        resolution = choose_resolution(out_rows)
+    rank = factors[0].shape[1]
+    out_dtype = torch.promote_types(vals.dtype, factors[0].dtype)
+    variant = _variant_for(resolution, out_rows, rank=rank,
+                           itemsize=out_dtype.itemsize)
+    t = int(hi.shape[0])
+    if t == 0:
+        return torch.zeros((out_rows, rank), dtype=out_dtype, device=device)
+    record_dispatch()
+    if device.type == "cuda":
+        _check_inputs(hi, lo, vals, bases, factors, field_bits, field_shifts,
+                      mode)
+        return _launch(variant, hi, lo, vals, bases, factors,
+                       field_bits=field_bits, field_shifts=field_shifts,
+                       mode=mode, out_rows=out_rows, out_dtype=out_dtype)
+    if device.type != "cpu":
+        raise ValueError(f"no kernel for device {device}")
+    if variant == "stash":
+        return ref.fused_stash_ref(hi, lo, vals, bases, factors,
+                                   field_bits=field_bits,
+                                   field_shifts=field_shifts, mode=mode,
+                                   out_rows=out_rows)
+    return ref.fused_segment_mttkrp_ref(
+        hi, lo, vals, bases, factors, field_bits=field_bits,
+        field_shifts=field_shifts, mode=mode, out_rows=out_rows,
+        tile=math.gcd(t, 256))
+
+
+def fused_cache_mttkrp(cache, factors, mode: int, *,
+                       resolution: str = "auto"):
+    """Fused MTTKRP straight from a device-resident ``LaunchCache``: the
+    stacked launches are one flat stream (views, no copy), one launch per
+    call regardless of the launch count."""
+    if cache.closed:
+        raise RuntimeError("launch cache is closed")
+    factors = tuple(factors)
+    if cache.num_launches == 0:
+        rank = factors[0].shape[1]
+        return torch.zeros((cache.dims[mode], rank),
+                           dtype=torch.promote_types(cache.vals.dtype,
+                                                     factors[0].dtype),
+                           device=cache.device)
+    hi, lo, vals, bases = cache.flat()
+    return fused_mttkrp_flat(hi, lo, vals, bases, factors,
+                             field_bits=cache.re_fields,
+                             field_shifts=cache.re_shifts, mode=mode,
+                             out_rows=cache.dims[mode],
+                             resolution=resolution)

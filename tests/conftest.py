@@ -10,6 +10,11 @@ from __future__ import annotations
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; a fixture skips it where none is")
+
+
 class _StubStrategies:
     """Accepts any strategy construction; the result is never executed."""
 
