@@ -7,19 +7,30 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each of which exits non-zero when it fails:
 
-1. build: nvcc compiles the kernels from the checkout's sources (build
-   seconds and the ``-Xptxas -v`` register/spill report are printed);
-2. kernels: K1 (segment) and K2 (stash) against their plain PyTorch
-   versions on the card, at orders 3-5, a field that straddles the two index
-   words, forced blocking (many launches), ragged nnz, R > 32 and the three
-   (values, factors) dtype pairs;
+1. build: one nvcc per source, side by side, compiles the kernels from the
+   checkout (build seconds and every kernel's ``-Xptxas -v`` register/spill
+   report are printed);
+2. kernels: K1 (segment), K2 (stash), K3 (delinearize), K4 (segments) and
+   K5 (stash_phases) against their plain PyTorch versions on the card, at
+   orders 3-5, a field that straddles the two index words, forced blocking
+   (many launches), ragged nnz, R > 32 and the three (values, factors)
+   dtype pairs; K3 and K4's run targets must match exactly, K4 also at a
+   non-power-of-two tile over a ragged stream and at tile 1;
 3. main path: NELL-2 and Uber at their FROSTT dims and nnz (synthesised
    from a seed), rank 32, through ``plan_for(kernel="cuda")`` and five
    CP-ALS sweeps, each held against the plain ``kernel="torch"`` path on
-   the card; the kernels' launch counters are zeroed just before and read
-   just after;
+   the card; then every mode through the three-phase pipeline
+   ``cuda_mttkrp_phases`` (K3, gather, K4 + scatter or K5), held against
+   the fused and the plain outputs.  The launch counters are zeroed just
+   before each of the two paths and read just after it;
 4. timing: each kernel and mode with CUDA events, beside the plain
-   version's time and the card's bound.
+   version's time and the card's bound; the phases path per mode, phase by
+   phase, beside the fused kernel on the same mode;
+5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
+   — five ``paper_like`` tensors built with 512 non-zeros per block (many
+   launches), mode 0, rank 32: microseconds and dispatches per call of the
+   per-launch loop, the cached plain path, ``cuda_mttkrp`` and
+   ``cuda_mttkrp_phases``, each held against the cached plain output.
 
 The last two lines are the kernel JSON line and the ``ok`` line.  Without a
 CUDA device, or outside a checkout, the script exits non-zero and prints
@@ -51,6 +62,10 @@ TENSORS = {
 # tensor cores (the main path runs in f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# 32-bit integer instructions (shift, mask, add) for K3: 64 INT32 lanes per
+# SM (half the 128 FP32 lanes behind the 67 TFLOP/s, which counts an FMA as
+# two) x 132 SMs x 1.98 GHz boost (Hopper architecture white paper)
+INT32_OPS = 64 * 132 * 1.98e9
 # both max |kernel - plain| / max |plain| and ||kernel - plain||_F /
 # ||plain||_F: the JAX package's tests bound f32 at 5e-4; atomics only
 # reorder float additions, so f64 agrees to ~1e-15.  The Frobenius ratio
@@ -61,13 +76,32 @@ REL_TOL = {"float32": 5e-4, "float64": 1e-10}
 # per-sweep CP-ALS fit, fused kernel vs plain path, both on the card in f32:
 # the pseudo-inverse amplifies the reordered additions of the atomics
 FIT_TOL = 1e-3
-SOURCE = "src/repro_torch/kernels/csrc/fused_mttkrp.cu"
+FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_mttkrp.cu"
+PHASES_SOURCE = "src/repro_torch/kernels/csrc/phases.cu"
+# launch-counter name -> (name in the JSON line, source, TPU kernel)
 KERNELS = {
-    "segment": ("K1 fused segment (segment_kernel)",
+    "segment": ("K1 fused segment (segment_kernel)", FUSED_SOURCE,
                 "src/repro/kernels/fused.py:82"),
-    "stash": ("K2 fused stash (stash_kernel)",
+    "stash": ("K2 fused stash (stash_kernel)", FUSED_SOURCE,
               "src/repro/kernels/fused.py:106"),
+    "delinearize": ("K3 delinearize (delinearize_kernel)", PHASES_SOURCE,
+                    "src/repro/kernels/delinearize.py:44"),
+    "segments": ("K4 segments (segments_kernel)", PHASES_SOURCE,
+                 "src/repro/kernels/blco_mttkrp.py:49"),
+    "stash_phases": ("K5 stash (stash_phases_kernel)", PHASES_SOURCE,
+                     "src/repro/kernels/blco_mttkrp.py:96"),
 }
+FUSED = ("segment", "stash")
+PHASES = ("delinearize", "segments", "stash_phases")
+# the phases path's kernel per (tensor, mode): Uber's mode 1 (24 rows) is
+# the one hierarchical mode whose stash fits, so it alone takes K5
+PHASES_STASH_MODES = {("uber", 1)}
+# phase 5: benchmarks/run.py's SUITE and DISPATCH_BLOCK
+DISPATCH_SUITE = ("uber-like", "chicago-like", "vast-like", "darpa-like",
+                  "nell2-like")
+DISPATCH_BLOCK = 1 << 9
+# rows per slice when two large outputs are compared in float64
+CHECK_ELEMENTS = 1 << 24
 # (dims, nnz, target_bits, max_nnz_per_block, rank)
 KERNEL_CASES = [
     ((70, 40, 30), 1777, 12, 512, RANK),             # order 3
@@ -84,13 +118,23 @@ def say(*parts) -> None:
 
 def check_err(what, a, b) -> tuple[float, float, float]:
     """(max |a - b| / max |b|, ||a - b||_F / ||b||_F, max |a - b|), in
-    float64; raises unless both relative errors are below the tolerance of
-    ``b``'s dtype."""
-    a64, b64 = a.double(), b.double()
-    d = a64 - b64
-    diff = float(d.abs().max())
-    rel = diff / max(float(b64.abs().max()), 1e-30)
-    fro = float(d.norm()) / max(float(b64.norm()), 1e-30)
+    float64 over slices of rows (a (T, R) output of K4 is 10.7 GB in f32 at
+    NELL-2 size); raises unless both relative errors are below the tolerance
+    of ``b``'s dtype."""
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+    diff = b_max = d_sq = b_sq = 0.0
+    rows = max(1, CHECK_ELEMENTS // max(1, b[0].numel())) if b.dim() else 1
+    for s in range(0, b.shape[0] if b.dim() else 1, rows):
+        b64 = b[s:s + rows].double()
+        d = a[s:s + rows].double() - b64
+        diff = max(diff, float(d.abs().max()))
+        b_max = max(b_max, float(b64.abs().max()))
+        d_sq += float((d * d).sum())
+        b_sq += float((b64 * b64).sum())
+    rel = diff / max(b_max, 1e-30)
+    fro = math.sqrt(d_sq) / max(math.sqrt(b_sq), 1e-30)
     tol = REL_TOL[str(b.dtype).replace("torch.", "")]
     if not (rel < tol and fro < tol):
         raise AssertionError(f"{what}: max-rel {rel:.3e}, Frobenius-rel "
@@ -124,13 +168,15 @@ def time_ms(fn, iters: int) -> float:
 
 # --------------------------------------------------------------- phase 1
 def build_phase() -> None:
-    from repro_torch.kernels.build import load_library
-    kl = load_library()
-    say(f"[build] {'built' if kl.built else 'loaded'} {kl.path.name} in "
-        f"{kl.seconds:.2f} s")
-    for line in kl.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] ptxas: {line.strip()}")
+    from repro_torch.kernels.build import load_libraries
+    for name, kl in load_libraries().items():
+        say(f"[build] {'built' if kl.built else 'loaded'} {kl.path.name} "
+            f"(all libraries in {kl.seconds:.2f} s)")
+        for line in kl.log.splitlines():
+            if "Compiling entry function" in line:
+                say(f"[build] {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                say(f"[build] {name}:   {line.strip()}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -186,8 +232,78 @@ def kernel_phase(dev) -> None:
     for (variant, dname), rel in sorted(worst.items()):
         say(f"[kernels] worst rel err (max-rel or Frobenius-rel) {variant} "
             f"{dname}: {rel:.3e}")
-    if {v for v, _ in worst} != set(KERNELS):
+    if {v for v, _ in worst} != set(FUSED):
         raise AssertionError("the kernel phase did not reach both kernels")
+
+
+def phase_kernels_phase(dev) -> None:
+    """K3, K4 and K5 against their plain versions on small cases."""
+    import torch
+    from repro_torch.core import build_blco, random_tensor
+    from repro_torch.core.launches import LaunchCache
+    from repro_torch.kernels import (STASH_MAX_BYTES, delinearize,
+                                     mttkrp_segments, mttkrp_stash, ref)
+
+    worst: dict = {}
+    pairs = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+             (torch.float64, torch.float32)]
+    for dims, nnz, tb, mx, rank in KERNEL_CASES:
+        t = random_tensor(dims, nnz, seed=7, dist="powerlaw")
+        b = build_blco(t, target_bits=tb, max_nnz_per_block=mx)
+        hi, lo, vals, bases = LaunchCache.from_blco(b, device=dev).flat()
+        kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift)
+        coords = delinearize(hi, lo, bases, **kw)
+        cut = hi.shape[0] - 160          # a ragged stream decodes alike
+        if not (torch.equal(coords, ref.delinearize_ref(hi, lo, bases, **kw))
+                and torch.equal(delinearize(hi[:cut], lo[:cut], bases[:cut],
+                                            **kw), coords[:cut])):
+            raise AssertionError(f"K3 differs from its plain version: dims "
+                                 f"{dims}")
+        worst[("delinearize", "int32")] = 0.0
+        t_all = hi.shape[0]
+        ragged = (t_all // 96) * 96 - 96     # gcd(ragged, 256) < 256
+        rng = np.random.default_rng(SEED)
+        host = [rng.standard_normal((d, rank)) for d in dims]
+        for vdt, fdt in pairs:
+            v = vals.to(vdt)
+            fs = [torch.as_tensor(h).to(device=dev, dtype=fdt) for h in host]
+            for mode, d in enumerate(dims):
+                g = tuple(fs[m].index_select(0, coords[:, m])
+                          for m in range(len(dims)) if m != mode)
+                tgt = coords[:, mode].contiguous()
+                what = f"dims {dims} mode {mode} {vdt}x{fdt}"
+                for tile, n in ((math.gcd(t_all, 256), t_all), (96, ragged),
+                                (1, 64)):
+                    args = (v[:n], tgt[:n], tuple(x[:n] for x in g))
+                    seg_tgt, seg_sums = mttkrp_segments(*args, tile=tile)
+                    want_tgt, want_sums = ref.mttkrp_segments_ref(*args,
+                                                                  tile=tile)
+                    torch.cuda.synchronize()
+                    if not torch.equal(seg_tgt, want_tgt):
+                        raise AssertionError(f"K4 seg_tgt differs from its "
+                                             f"plain version: {what} tile "
+                                             f"{tile}")
+                    rel, fro, _ = check_err(f"K4 {what} tile {tile}",
+                                            seg_sums, want_sums)
+                    key = ("segments", str(seg_sums.dtype)[6:])
+                    worst[key] = max(worst.get(key, 0.0), rel, fro)
+                out_dtype = torch.promote_types(vdt, fdt)
+                if d * rank * out_dtype.itemsize <= STASH_MAX_BYTES:
+                    out = mttkrp_stash(v, tgt, g, out_rows=d)
+                    want = ref.mttkrp_stash_ref(v, tgt, g, out_rows=d)
+                    torch.cuda.synchronize()
+                    rel, fro, _ = check_err(f"K5 {what}", out, want)
+                    key = ("stash_phases", str(out.dtype)[6:])
+                    worst[key] = max(worst.get(key, 0.0), rel, fro)
+        say(f"[kernels] K3/K4/K5 dims {dims} nnz {b.nnz} T {t_all} R {rank}: "
+            f"ok (K4 tiles {math.gcd(t_all, 256)}, 96 over {ragged} slots, "
+            f"1 over 64)")
+    for (kernel, dname), rel in sorted(worst.items()):
+        say(f"[kernels] worst rel err (max-rel or Frobenius-rel) {kernel} "
+            f"{dname}: {rel:.3e}" + (" (exact)" if kernel == "delinearize"
+                                     else ""))
+    if {k for k, _ in worst} != set(PHASES):
+        raise AssertionError("the kernel phase did not reach K3, K4 and K5")
 
 
 # --------------------------------------------------------------- phase 3
@@ -246,6 +362,7 @@ def run_tensor(name, dims, nnz, dev) -> dict:
                          owns_resident=False)
     factors = init_factors(dims, RANK, seed=SEED, device=dev)
     modes = []
+    outs = []
     for mode, d in enumerate(dims):
         res = choose_resolution(d)
         variant = fused._variant_for(res, d, rank=RANK, itemsize=4)
@@ -259,6 +376,7 @@ def run_tensor(name, dims, nnz, dev) -> dict:
             f"(max abs {diff:.3e}); mean run of equal target "
             f"{mean_run_length(plan.resident.cache, mode):.4f} non-zeros")
         modes.append((mode, d, variant, res))
+        outs.append((out, want))
 
     torch.linalg.pinv(torch.eye(RANK, device=dev))      # loads cuSOLVER
     torch.cuda.synchronize()
@@ -290,27 +408,100 @@ def run_tensor(name, dims, nnz, dev) -> dict:
     say(f"[main] {name}: EngineStats {json.dumps(snap)}")
     say(f"[main] {name}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    return {"name": name, "plan": plan, "dims": dims, "nnz": b.nnz,
-            "modes": modes, "factors": factors}
+    return {"name": name, "plan": plan, "blco": b, "dims": dims,
+            "nnz": b.nnz, "modes": modes, "outs": outs, "factors": factors}
+
+
+def phases_path(run) -> None:
+    """Every mode of one tensor through the three-phase pipeline, held
+    against the fused and the plain outputs of the same mode; the launch
+    counters show which compute kernel each mode took."""
+    import torch
+    from repro_torch.kernels import cuda_mttkrp_phases, launch_counts
+    cache = run["plan"].resident.cache
+    torch.cuda.reset_peak_memory_stats()
+    for (mode, d, _, res), (fused_out, plain_out) in zip(run["modes"],
+                                                          run["outs"]):
+        before = dict(launch_counts)
+        t0 = time.perf_counter()
+        out = cuda_mttkrp_phases(run["blco"], run["factors"], mode,
+                                 cache=cache)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        took = {k: launch_counts[k] - before[k] for k in KERNELS}
+        stash = (run["name"], mode) in PHASES_STASH_MODES
+        want = {"segment": 0, "stash": 0, "delinearize": 1,
+                "segments": 0 if stash else 1, "stash_phases": int(stash)}
+        if took != want:
+            raise AssertionError(f"{run['name']} mode {mode}: the phases "
+                                 f"path launched {took}, expected {want}")
+        if out.shape != (d, RANK) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{run['name']} mode {mode}: bad phases "
+                                 f"output")
+        rel_f, fro_f, _ = check_err(f"{run['name']} mode {mode}: phases vs "
+                                    f"fused", out, fused_out)
+        rel_p, fro_p, _ = check_err(f"{run['name']} mode {mode}: phases vs "
+                                    f"plain", out, plain_out)
+        say(f"[phases] {run['name']} mode {mode} (I={d}, {res}) -> K3 + "
+            f"gather + {'K5' if stash else 'K4 + scatter'} in {secs:.3f} s "
+            f"(first call): vs fused max-rel {rel_f:.3e}, Frobenius-rel "
+            f"{fro_f:.3e}; vs kernel='torch' max-rel {rel_p:.3e}, "
+            f"Frobenius-rel {fro_p:.3e}")
+    say(f"[phases] {run['name']}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (cache "
+        f"{cache.device_bytes() / 1e9:.3f} GB)")
 
 
 # --------------------------------------------------------------- phase 4
+def roof(nbytes, ops, ops_per_s) -> tuple[float, str]:
+    """max(bytes / HBM rate, ops / peak rate) in ms, and which bounds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(nnz, dims, mode, rank) -> tuple[float, str]:
-    """Least milliseconds for one f32 call (each input read once, the output
-    written once; nnz * R * N operations) and what bounds it."""
+    """Least milliseconds for one f32 fused call (each input read once, the
+    output written once; nnz * R * N operations) and what bounds it."""
     item = 4
     n = len(dims)
     stream = nnz * (4 + 4 + item + 4 * n)
     facs = sum(d * rank * item for m, d in enumerate(dims) if m != mode)
     out = dims[mode] * rank * item
-    t_bytes = (stream + facs + out) / HBM_BYTES_PER_S
-    t_ops = nnz * rank * n / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roof(stream + facs + out, nnz * rank * n, F32_FLOPS)
+
+
+def phase_bound(kernel, t, dims, mode, rank) -> tuple[float, str]:
+    """Least milliseconds for one f32 call of K3, K4 or K5 over the padded
+    stream of ``t`` slots, which is what these kernels read and write.
+
+    K3 reads hi + lo + N bases and writes N coordinates (4 B each) per slot,
+    three integer operations (shift, mask, add) per field.  K4 and K5 read
+    the value, the target and N-1 gathered rows of R values per slot and do
+    N*R operations (N-1 multiplies and an add per column); K4 writes seg_tgt
+    and a (T, R) seg_sums, K5 the (I_mode, R) output."""
+    item = 4
+    n = len(dims)
+    if kernel == "delinearize":
+        return roof(t * (8 + 4 * n) + t * 4 * n, 3 * t * n, INT32_OPS)
+    reads = t * (item + 4) + (n - 1) * t * rank * item
+    writes = t * (4 + rank * item) if kernel == "segments" \
+        else dims[mode] * rank * item
+    return roof(reads + writes, t * rank * n, F32_FLOPS)
+
+
+def add_row(rows, kernel, ms, plain_ms, bound_ms, by, diff) -> None:
+    row = rows[kernel]
+    row["ms"] += ms
+    row["plain_ms"] += plain_ms
+    row["bound_ms"] += bound_ms
+    row["bytes_ms"] += bound_ms if by == "bytes" else 0.0
+    row["max_abs_err"] = max(row["max_abs_err"], diff)
+    row["calls"] += 1
 
 
 def timing_phase(runs) -> dict:
-    import torch
     from repro_torch.kernels import fused, ref
     rows = {v: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
                 "max_abs_err": 0.0, "calls": 0} for v in KERNELS}
@@ -318,6 +509,7 @@ def timing_phase(runs) -> dict:
         cache = run["plan"].resident.cache
         hi, lo, vals, bases = cache.flat()
         fs = run["factors"]
+        run["fused_ms"] = {}
         for mode, d, variant, res in run["modes"]:
             kw = dict(field_bits=cache.re_fields, field_shifts=cache.re_shifts,
                       mode=mode, out_rows=d)
@@ -342,17 +534,167 @@ def timing_phase(runs) -> dict:
                 f"Frobenius-rel {fro:.3e}; "
                 f"library_ms null (no single PyTorch call computes a sparse "
                 f"MTTKRP)")
-            row = rows[variant]
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
-            row["bound_ms"] += b_ms
-            row["bytes_ms"] += b_ms if by == "bytes" else 0.0
-            row["max_abs_err"] = max(row["max_abs_err"], diff)
-            row["calls"] += 1
+            add_row(rows, variant, ms, plain_ms, b_ms, by, diff)
+            run["fused_ms"][mode] = ms
     return rows
 
 
+def phases_timing(runs, rows) -> None:
+    """K3, K4 and K5 on every mode beside their plain versions and bounds,
+    and the whole phases path phase by phase beside the fused kernel."""
+    import torch
+    from repro_torch.kernels import (cuda_mttkrp_phases, delinearize,
+                                     mttkrp_segments, mttkrp_stash, ref)
+    for run in runs:
+        cache = run["plan"].resident.cache
+        hi, lo, vals, bases = cache.flat()
+        t = hi.shape[0]
+        tile = math.gcd(t, 256)
+        dims, fs, name = run["dims"], run["factors"], run["name"]
+        n = len(dims)
+        kw = dict(field_bits=cache.re_fields, field_shifts=cache.re_shifts)
+        for mode, d, _, _ in run["modes"]:
+            path_ms = time_ms(lambda: cuda_mttkrp_phases(
+                run["blco"], fs, mode, cache=cache), 20)
+            torch.cuda.empty_cache()
+
+            k3_ms = time_ms(lambda: delinearize(hi, lo, bases, **kw), 20)
+            k3_plain_ms = time_ms(lambda: ref.delinearize_ref(hi, lo, bases,
+                                                              **kw), 3)
+            coords = delinearize(hi, lo, bases, **kw)
+            if not torch.equal(coords, ref.delinearize_ref(hi, lo, bases,
+                                                           **kw)):
+                raise AssertionError(f"{name}: K3 differs from its plain "
+                                     f"version")
+            b_ms, by = phase_bound("delinearize", t, dims, mode, RANK)
+            add_row(rows, "delinearize", k3_ms, k3_plain_ms, b_ms, by, 0.0)
+            say(f"[timing] {name} mode {mode} delinearize: kernel "
+                f"{k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}), {b_ms / k3_ms:.3f} of the bound; "
+                f"exact; library_ms null (no PyTorch call extracts bit "
+                f"fields)")
+
+            def gather():
+                return tuple(fs[m].index_select(0, coords[:, m])
+                             for m in range(n) if m != mode)
+            gather_ms = time_ms(gather, 20)
+            g = gather()
+            tgt = coords[:, mode].contiguous()
+            del coords
+            kernel = "stash_phases" if (name, mode) in PHASES_STASH_MODES \
+                else "segments"
+            if kernel == "stash_phases":
+                ms = time_ms(lambda: mttkrp_stash(vals, tgt, g, out_rows=d),
+                             20)
+                plain_ms = time_ms(lambda: ref.mttkrp_stash_ref(
+                    vals, tgt, g, out_rows=d), 3)
+                rel, fro, diff = check_err(
+                    f"{name} mode {mode}: K5", mttkrp_stash(
+                        vals, tgt, g, out_rows=d),
+                    ref.mttkrp_stash_ref(vals, tgt, g, out_rows=d))
+                scatter_ms = 0.0
+                lib_note = ("no single PyTorch call multiplies the gathered "
+                            "rows and scatter-adds them")
+            else:
+                ms = time_ms(lambda: mttkrp_segments(vals, tgt, g,
+                                                     tile=tile), 20)
+                plain_ms = time_ms(lambda: ref.mttkrp_segments_ref(
+                    vals, tgt, g, tile=tile), 3)
+                seg_tgt, seg_sums = mttkrp_segments(vals, tgt, g, tile=tile)
+                want_tgt, want_sums = ref.mttkrp_segments_ref(vals, tgt, g,
+                                                              tile=tile)
+                if not torch.equal(seg_tgt, want_tgt):
+                    raise AssertionError(f"{name} mode {mode}: K4 seg_tgt "
+                                         f"differs from its plain version")
+                rel, fro, diff = check_err(f"{name} mode {mode}: K4",
+                                           seg_sums, want_sums)
+                del want_tgt, want_sums, g
+                scatter_ms = time_ms(lambda: ref.scatter_segments_ref(
+                    seg_tgt, seg_sums, d), 20)
+                del seg_tgt, seg_sums
+                lib_note = "no PyTorch call finds per-tile runs"
+            b_ms, by = phase_bound(kernel, t, dims, mode, RANK)
+            add_row(rows, kernel, ms, plain_ms, b_ms, by, diff)
+            say(f"[timing] {name} mode {mode} {kernel}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                f"{b_ms / ms:.3f} of the bound; max-rel {rel:.3e}, "
+                f"Frobenius-rel {fro:.3e}; library_ms null ({lib_note})")
+            parts = k3_ms + gather_ms + ms + scatter_ms
+            fused_ms = run["fused_ms"][mode]
+            say(f"[timing] {name} mode {mode} phases path: {path_ms:.4f} ms "
+                f"per call (K3 {k3_ms:.4f} + gather {gather_ms:.4f} + "
+                f"{kernel} {ms:.4f} + scatter {scatter_ms:.4f} = "
+                f"{parts:.4f} ms timed apart; T = {t} padded slots) vs the "
+                f"fused kernel {fused_ms:.4f} ms: phases / fused = "
+                f"{path_ms / fused_ms:.3f}")
+            torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- phase 5
+def dispatch_phase(dev) -> None:
+    """µs and dispatches per mode-0 call of four paths over the five
+    ``paper_like`` tensors with many launches, each held against the cached
+    plain output (``benchmarks/run.py::bench_dispatch`` on the card)."""
+    import statistics
+
+    import torch
+    from repro_torch.core import (build_blco, clear_launch_cache,
+                                  dispatch_count, mttkrp_per_launch,
+                                  paper_like)
+    from repro_torch.engine import plan_for
+    from repro_torch.kernels import cuda_mttkrp, cuda_mttkrp_phases
+
+    def host_us(fn) -> float:
+        """Median of 5 calls, each fenced by a synchronize, after 2."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e6
+
+    for name in DISPATCH_SUITE:
+        t = paper_like(name, seed=SEED)
+        b = build_blco(t, max_nnz_per_block=DISPATCH_BLOCK)
+        rng = np.random.default_rng(SEED)
+        fs = [torch.as_tensor(rng.standard_normal((d, RANK)).astype(
+            np.float32), device=dev) for d in t.dims]
+        plan = plan_for(b, 1 << 40, rank=RANK, backend="in_memory",
+                        kernel="torch", device=dev)
+        want = plan.mttkrp(fs, 0)
+        paths = {
+            "per_launch_loop": lambda: mttkrp_per_launch(b, fs, 0,
+                                                         device=dev),
+            "cached_torch": lambda: plan.mttkrp(fs, 0),
+            "cuda_mttkrp": lambda: cuda_mttkrp(b, fs, 0, device=dev),
+            "cuda_mttkrp_phases": lambda: cuda_mttkrp_phases(b, fs, 0,
+                                                             device=dev),
+        }
+        parts = []
+        for label, fn in paths.items():
+            c0 = dispatch_count()
+            out = fn()
+            calls = dispatch_count() - c0
+            torch.cuda.synchronize()
+            rel, fro, _ = check_err(f"{name} {label} vs the cached plain "
+                                    f"path", out, want)
+            parts.append(f"{label} {host_us(fn):.1f} us ({calls} "
+                         f"dispatches/call, max-rel {rel:.1e})")
+        say(f"[dispatch] {name}: dims {t.dims} nnz {t.nnz} launches "
+            f"{len(b.launches)}, mode 0, R {RANK}: " + "; ".join(parts))
+        clear_launch_cache(b)
+        plan.close()
+
+
 def main() -> int:
+    # the phases path allocates and frees tens of GB of (T, R) tensors of
+    # several sizes per call; growable segments keep the cache from
+    # fragmenting (read when the allocator starts, before any allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -374,22 +716,36 @@ def main() -> int:
 
     build_phase()
     kernel_phase(dev)
+    phase_kernels_phase(dev)
 
     reset_launch_counts()
     runs = [run_tensor(name, dims, nnz, dev)
             for name, (dims, nnz) in TENSORS.items()]
     launches = dict(launch_counts)
     say(f"[main] kernel launches on the main path: {launches}")
-    if not all(launches[v] > 0 for v in KERNELS):
+    if not all(launches[v] > 0 for v in FUSED):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
+    torch.cuda.empty_cache()        # the plain path's temporaries
+    reset_launch_counts()
+    for run in runs:
+        phases_path(run)
+    phase_launches = dict(launch_counts)
+    say(f"[phases] kernel launches on the phases path: {phase_launches}")
+    if not all(phase_launches[v] > 0 for v in PHASES):
+        raise AssertionError(f"a kernel of the phases path never ran: "
+                             f"{phase_launches}")
+    launches.update({k: phase_launches[k] for k in PHASES})
+
     rows = timing_phase(runs)
+    phases_timing(runs, rows)
+    dispatch_phase(dev)
     entries = []
-    for variant, (name, replaces) in KERNELS.items():
-        row = rows[variant]
+    for kernel, (name, source, replaces) in KERNELS.items():
+        row = rows[kernel]
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches[variant],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes" if row["bytes_ms"] * 2 >= row["bound_ms"]

@@ -16,6 +16,14 @@ Per launch the dataflow is the paper's two phases:
 ``repro_torch.kernels.fused`` holds the fused CUDA kernel (``kernel="cuda"``,
 the counterpart of ``"pallas"``).  Both are held against the dense
 matricization oracle in the tests.
+
+The free-function API: ``mttkrp`` pads the launches ONCE into a
+device-resident ``LaunchCache`` attached to the tensor
+(``launch_cache_for``; ``clear_launch_cache`` drops it) and runs the plain
+dataflow over it; ``mttkrp_per_launch`` keeps the per-launch loop — one host
+padding pass and one dispatch per launch per call — as the exact-shape
+``pad=False`` oracle and the baseline the single-dispatch paths are
+measured against.
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ import torch
 
 from . import u64
 from .blco import BLCOTensor
-from .device import DEFAULT_DEVICE
+from .counters import record_dispatch
+from .device import DEFAULT_DEVICE, resolve_device
+from .padding import pad_pow2
 
 # The paper's "#SMs" constant in the §5.3 heuristic: below this target-mode
 # length, update contention dominates and the hierarchical (multi-copy)
@@ -129,6 +139,99 @@ def launch_mttkrp_impl(idx_hi, idx_lo, vals, bases, factors, *,
         out.index_put_((copy_id, seg_tgt), seg_sums, accumulate=True)
         return out.sum(dim=0)
     raise ValueError(f"unknown resolution {resolution!r}")
+
+
+def _on_device(x: torch.device, want: torch.device) -> bool:
+    return x.type == want.type and (want.index is None
+                                    or x.index == want.index)
+
+
+def launch_cache_for(blco: BLCOTensor, *, device=DEFAULT_DEVICE):
+    """The tensor's attached device-resident launch cache, built once (and
+    built again if it was closed or lies on another device).
+
+    It backs the free-function ``mttkrp`` and the ``repro_torch.kernels.ops``
+    wrappers only; engine plans build and own their own cache.  Call
+    :func:`clear_launch_cache` to release it.
+    """
+    from .launches import LaunchCache
+    dev = resolve_device(device)
+    cache = getattr(blco, "_launch_cache", None)
+    if cache is None or cache.closed or not _on_device(cache.device, dev):
+        cache = LaunchCache.from_blco(blco, device=dev)
+        blco._launch_cache = cache
+    return cache
+
+
+def clear_launch_cache(blco: BLCOTensor) -> int:
+    """Release the launch cache attached by ``launch_cache_for``; returns
+    the device bytes freed (0 when none was attached)."""
+    cache = getattr(blco, "_launch_cache", None)
+    if cache is None:
+        return 0
+    freed = cache.device_bytes()
+    cache.delete()
+    blco._launch_cache = None
+    return freed
+
+
+def mttkrp(blco: BLCOTensor, factors, mode: int, *, resolution: str = "auto",
+           copies: int = DEFAULT_COPIES, pad: bool = True, cache=None,
+           device=DEFAULT_DEVICE):
+    """Full mode-n MTTKRP over all launches of a BLCO tensor, plain PyTorch.
+
+    factors: N (I_n, R) tensors on ``device``.  Returns (I_mode, R).  With
+    ``pad=True`` the call runs over the attached launch cache (or
+    ``cache=``), built once; ``pad=False`` is the exact-shape per-launch
+    path (no padding slots).
+    """
+    if not 0 <= mode < blco.order:
+        raise ValueError(f"mode {mode} out of range for order {blco.order}")
+    if not pad:
+        return mttkrp_per_launch(blco, factors, mode, resolution=resolution,
+                                 copies=copies, pad=False, device=device)
+    cache = cache if cache is not None else launch_cache_for(blco,
+                                                             device=device)
+    return cache.mttkrp(factors, mode, resolution=resolution, copies=copies)
+
+
+def mttkrp_per_launch(blco: BLCOTensor, factors, mode: int, *,
+                      resolution: str = "auto", copies: int = DEFAULT_COPIES,
+                      pad: bool = True, device=DEFAULT_DEVICE):
+    """One host padding pass (to a power of two, or none with ``pad=False``)
+    + one upload + one plain dispatch PER LAUNCH per call; one dispatch is
+    recorded per launch."""
+    if not 0 <= mode < blco.order:
+        raise ValueError(f"mode {mode} out of range for order {blco.order}")
+    dev = resolve_device(device)
+    if resolution == "auto":
+        resolution = choose_resolution(blco.dims[mode])
+    factors = tuple(torch.as_tensor(f, device=dev) for f in factors)
+    rank = factors[0].shape[1]
+    dtype = torch.promote_types(torch.from_numpy(blco.values[:0]).dtype,
+                                factors[0].dtype)
+    out = torch.zeros((blco.dims[mode], rank), dtype=dtype, device=dev)
+    bases_all = blco.block_upper_bases()           # (num_blocks, N)
+    block_ids = blco.element_block_ids()           # (nnz,)
+    for launch in blco.launches:
+        s, e = launch.start, launch.end
+        n = e - s
+        padded = pad_pow2(n) if pad else n
+        hi = np.zeros(padded, np.uint32)
+        lo = np.zeros(padded, np.uint32)
+        vals = np.zeros(padded, blco.values.dtype)
+        bases = np.zeros((padded, blco.order), np.int32)
+        hi[:n] = blco.idx_hi[s:e]
+        lo[:n] = blco.idx_lo[s:e]
+        vals[:n] = blco.values[s:e]
+        bases[:n] = bases_all[block_ids[s:e]]
+        record_dispatch()
+        out = out + launch_mttkrp_impl(
+            *(torch.from_numpy(a).to(dev) for a in (hi, lo, vals, bases)),
+            factors, re_fields=blco.re.field_bits,
+            re_shifts=blco.re.field_shift, mode=mode,
+            out_rows=blco.dims[mode], resolution=resolution, copies=copies)
+    return out
 
 
 class DeviceBLCO:

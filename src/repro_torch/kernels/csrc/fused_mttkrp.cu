@@ -8,8 +8,9 @@
 //   stash_kernel    K2  src/repro/kernels/fused.py:106 _fused_stash_kernel
 // Both start from the same per-non-zero work as the Pallas kernels'
 // _partial_and_target (fused.py:62): extract every mode's field from the
-// (hi, lo) uint32 index words with extract_field_words (the port of
-// src/repro/kernels/delinearize.py:22, a field may straddle the two words),
+// (hi, lo) uint32 index words with extract_field_words (fields.cuh, the
+// port of src/repro/kernels/delinearize.py:22; a field may straddle the two
+// words),
 // add the int32 block base, gather the N-1 non-target factor rows and
 // multiply them with the value at the promoted type.
 //
@@ -56,10 +57,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_ORDER 8
+#include "fields.cuh"
+
 #define FULL_MASK 0xffffffffu
 #define THREADS 256
-#define STASH_MAX_BYTES (227 * 1024)
 
 struct Fields {
   int n;                    // tensor order
@@ -72,21 +73,6 @@ template <typename FT>
 struct Factors {
   const FT* p[MAX_ORDER];   // (I_m, R) row-major factor matrices
 };
-
-// Bits [shift, shift + width) of (hi << 32) | lo with 32-bit operations only
-// (port of extract_field_words, src/repro/kernels/delinearize.py:22).
-__device__ __forceinline__ uint32_t extract_field_words(uint32_t hi, uint32_t lo,
-                                                        int shift, int width) {
-  if (width == 0) return 0u;
-  const uint32_t mask = width >= 32 ? 0xffffffffu : ((1u << width) - 1u);
-  if (shift >= 32) return (hi >> (shift - 32)) & mask;   // entirely in hi
-  if (shift + width <= 32) return (lo >> shift) & mask;  // entirely in lo
-  // straddles the two words: stitch (here 1 <= shift, shift + width < 64)
-  const int lo_bits = 32 - shift;
-  const uint32_t lo_part = lo >> shift;
-  const uint32_t hi_part = hi & ((1u << (shift + width - 32)) - 1u);
-  return (lo_part | (hi_part << lo_bits)) & mask;
-}
 
 // One warp folds the non-zeros [start, end) into `out` (row stride R),
 // which is the global output (K1) or the CTA's shared stash (K2).

@@ -18,8 +18,8 @@ Inputs come straight from the device-resident launch cache
 
 A wrapper given CUDA tensors launches its kernel or raises; there is no
 fallback.  Given CPU tensors it runs the kernel's plain PyTorch version in
-``ref.py`` (what the tests do).  ``launch_counts`` counts the kernel
-launches per variant, on the card only.
+``ref.py`` (what the tests do).  ``launch_counts`` (``common.py``) counts
+each variant's kernel launches, on the card only.
 """
 from __future__ import annotations
 
@@ -32,28 +32,15 @@ from repro_torch.core.counters import record_dispatch
 from repro_torch.core.mttkrp import CONTENTION_THRESHOLD, choose_resolution
 
 from . import ref
+from .common import (DTYPE_PAIRS, MAX_ORDER, STASH_MAX_BYTES,
+                     check_contiguous, check_dtype_pair, launch_counts,
+                     one_device, raise_on_error)
 
+# the C side's variant code is the index in VARIANTS: keep the order
 VARIANTS = ("segment", "stash")
 # the stash variant is for short target modes (§5.3); its (out_rows, R)
-# stash must also fit one CTA's shared memory on Hopper (227 KB)
+# stash must also fit one CTA's shared memory on Hopper (STASH_MAX_BYTES)
 STASH_MAX_ROWS = 4 * CONTENTION_THRESHOLD
-STASH_MAX_BYTES = 227 * 1024
-
-# (vals dtype, factors dtype) -> the C interface's dtype_pair code
-_DTYPE_PAIRS = {
-    (torch.float32, torch.float32): 0,
-    (torch.float64, torch.float64): 1,
-    (torch.float64, torch.float32): 2,
-}
-_MAX_ORDER = 8
-
-launch_counts = {v: 0 for v in VARIANTS}
-
-
-def reset_launch_counts() -> None:
-    """Set every variant's kernel-launch count to 0."""
-    for v in VARIANTS:
-        launch_counts[v] = 0
 
 
 def _variant_for(resolution: str, out_rows: int, *, rank: int,
@@ -70,8 +57,8 @@ def _check_inputs(hi, lo, vals, bases, factors, field_bits, field_shifts,
                   mode):
     n = len(field_bits)
     t = hi.shape[0]
-    if not 1 <= n <= _MAX_ORDER:
-        raise ValueError(f"order {n} outside 1..{_MAX_ORDER}")
+    if not 1 <= n <= MAX_ORDER:
+        raise ValueError(f"order {n} outside 1..{MAX_ORDER}")
     if len(field_shifts) != n or len(factors) != n or not 0 <= mode < n:
         raise ValueError("field_bits, field_shifts, factors and mode disagree "
                          "on the tensor order")
@@ -90,20 +77,15 @@ def _check_inputs(hi, lo, vals, bases, factors, field_bits, field_shifts,
             raise ValueError("factors must be (I_n, R) with one R")
         if f.dtype != factors[0].dtype:
             raise TypeError("factors must share one dtype")
-    if (vals.dtype, factors[0].dtype) not in _DTYPE_PAIRS:
-        raise TypeError(f"unsupported (vals, factors) dtypes "
-                        f"({vals.dtype}, {factors[0].dtype}); the kernel "
-                        f"takes {sorted(map(str, _DTYPE_PAIRS))}")
-    for x in (hi, lo, vals, bases, *factors):
-        if not x.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
+    check_dtype_pair(vals, factors[0])
+    check_contiguous(hi, lo, vals, bases, *factors)
 
 
 def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
             field_shifts, mode, out_rows, out_dtype):
     """Launch one kernel on the tensors' card and return its output."""
     from .build import load_library
-    lib = load_library().lib
+    lib = load_library("fused_mttkrp").lib
     n = len(field_bits)
     t = hi.shape[0]
     rank = factors[0].shape[1]
@@ -114,15 +96,13 @@ def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mttkrp_launch(
-            VARIANTS.index(variant), _DTYPE_PAIRS[(vals.dtype,
-                                                  factors[0].dtype)],
+            VARIANTS.index(variant), DTYPE_PAIRS[(vals.dtype,
+                                                 factors[0].dtype)],
             hi.data_ptr(), lo.data_ptr(), vals.data_ptr(), bases.data_ptr(),
             ptrs, n, mode, shifts, widths, t, rank, out_rows, out.data_ptr(),
             stream)
-    if err:
-        msg = lib.fused_mttkrp_error_string(err).decode()
-        raise RuntimeError(f"fused MTTKRP {variant} kernel launch failed: "
-                           f"{msg} (cudaError {err})")
+    raise_on_error(err, lib.fused_mttkrp_error_string,
+                   f"fused MTTKRP {variant}")
     launch_counts[variant] += 1
     return out
 
@@ -139,10 +119,7 @@ def fused_mttkrp_flat(hi, lo, vals, bases, factors, *, field_bits: tuple,
     256).
     """
     factors = tuple(factors)
-    devices = {x.device for x in (hi, lo, vals, bases, *factors)}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {devices}")
-    device = devices.pop()
+    device = one_device(hi, lo, vals, bases, *factors)
     if resolution == "auto":
         resolution = choose_resolution(out_rows)
     rank = factors[0].shape[1]

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (segment) and K2 (stash) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels K1 (segment), K2 (stash), K3 (delinearize), K4
+(segments) and K5 (stash_phases) against their plain PyTorch versions, on
+the card.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips where no card is present; whether one is present is decided inside
@@ -16,8 +17,10 @@ import torch
 
 from repro_torch import core
 from repro_torch.core.launches import LaunchCache
+from repro_torch.core.mttkrp import CONTENTION_THRESHOLD
 from repro_torch.engine import plan_for
-from repro_torch.kernels import fused, ref
+from repro_torch.kernels import (blco_mttkrp, common, cuda_mttkrp_phases,
+                                 delinearize, fused, ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -107,10 +110,102 @@ def test_unsupported_dtypes_raise(cuda):
 
 
 def test_build_reports_registers(cuda):
-    from repro_torch.kernels.build import load_library
-    kl = load_library()
+    from repro_torch.kernels.build import load_libraries, load_library
+    assert set(load_libraries()) == {"fused_mttkrp", "phases"}
+    ph = load_library("phases")
+    assert "registers" in ph.log
+    assert ph.lib.phases_max_order() == common.MAX_ORDER
+    assert ph.lib.phases_max_tile() == blco_mttkrp.MAX_TILE
+    assert ph.lib.phases_stash_max_bytes() == common.STASH_MAX_BYTES
+    kl = load_library("fused_mttkrp")
     assert kl.path.is_file()
     assert "registers" in kl.log
     # the limits the wrapper checks are the ones the C side enforces
-    assert kl.lib.fused_mttkrp_max_order() == fused._MAX_ORDER
-    assert kl.lib.fused_mttkrp_stash_max_bytes() == fused.STASH_MAX_BYTES
+    assert kl.lib.fused_mttkrp_max_order() == common.MAX_ORDER
+    assert kl.lib.fused_mttkrp_stash_max_bytes() == common.STASH_MAX_BYTES
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=["f32", "f64", "f64xf32"])
+@pytest.mark.parametrize("dims,nnz,tb,mx,rank", CASES)
+def test_phase_kernels_match_plain_versions(cuda, dims, nnz, tb, mx, rank,
+                                            pair):
+    """K3 exactly, K4's seg_tgt exactly and its sums and K5 within the
+    tolerance, at the stream's tile, a non-power-of-two tile over a ragged
+    prefix, and tile 1."""
+    vdt, fdt = pair
+    t = core.random_tensor(dims, nnz, seed=7, dist="powerlaw")
+    b = core.build_blco(t, target_bits=tb, max_nnz_per_block=mx)
+    hi, lo, vals, bases = LaunchCache.from_blco(b, device=cuda).flat()
+    vals = vals.to(vdt)
+    kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift)
+    before = common.launch_counts["delinearize"]
+    coords = delinearize(hi, lo, bases, **kw)
+    assert common.launch_counts["delinearize"] == before + 1
+    assert torch.equal(coords, ref.delinearize_ref(hi, lo, bases, **kw))
+    cut = hi.shape[0] - 160
+    assert torch.equal(delinearize(hi[:cut], lo[:cut], bases[:cut], **kw),
+                       coords[:cut])
+    rng = np.random.default_rng(0)
+    fs = [torch.as_tensor(rng.standard_normal((d, rank))).to(cuda, fdt)
+          for d in dims]
+    t_all = hi.shape[0]
+    ragged = (t_all // 96) * 96 - 96
+    for mode, d in enumerate(dims):
+        g = tuple(fs[m].index_select(0, coords[:, m])
+                  for m in range(len(dims)) if m != mode)
+        tgt = coords[:, mode].contiguous()
+        for tile, n in ((math.gcd(t_all, 256), t_all), (96, ragged), (1, 64)):
+            args = (vals[:n], tgt[:n], tuple(x[:n] for x in g))
+            seg_tgt, seg_sums = blco_mttkrp.mttkrp_segments(*args, tile=tile)
+            want_tgt, want_sums = ref.mttkrp_segments_ref(*args, tile=tile)
+            torch.cuda.synchronize()
+            assert seg_sums.dtype == torch.promote_types(vdt, fdt)
+            assert torch.equal(seg_tgt, want_tgt), (mode, tile)
+            assert _rel(seg_sums, want_sums) < REL_TOL[seg_sums.dtype], \
+                (mode, tile)
+        if d * rank * seg_sums.element_size() <= common.STASH_MAX_BYTES:
+            out = blco_mttkrp.mttkrp_stash(vals, tgt, g, out_rows=d)
+            want = ref.mttkrp_stash_ref(vals, tgt, g, out_rows=d)
+            torch.cuda.synchronize()
+            assert out.shape == (d, rank)
+            assert _rel(out, want) < REL_TOL[out.dtype], mode
+
+
+def test_phases_path_is_one_launch_of_each_phase_kernel(cuda):
+    """One K3 and one K4 or K5 launch per call; a hierarchical mode whose
+    stash fits takes K5; the result agrees with the fused kernel."""
+    t = core.random_tensor((13, 7, 29, 5), 499, seed=3, dist="powerlaw")
+    b = core.build_blco(t, target_bits=8, max_nnz_per_block=64)
+    cache = LaunchCache.from_blco(b, device=cuda)
+    fs = core.init_factors(b.dims, 8, seed=1, device=cuda)
+    for mode in range(b.order):
+        before = dict(common.launch_counts)
+        c0 = core.dispatch_count()
+        out = cuda_mttkrp_phases(b, fs, mode, cache=cache)
+        assert core.dispatch_count() - c0 == 3
+        after = dict(common.launch_counts)
+        stash = b.dims[mode] < CONTENTION_THRESHOLD
+        assert {k: after[k] - before[k] for k in after} == {
+            "segment": 0, "stash": 0, "delinearize": 1,
+            "segments": 0 if stash else 1, "stash_phases": 1 if stash else 0}
+        want = fused.fused_cache_mttkrp(cache, fs, mode)
+        torch.cuda.synchronize()
+        assert _rel(out, want) < REL_TOL[torch.float32], mode
+
+
+def test_phase_kernels_refuse_unsupported_inputs(cuda):
+    vals = torch.ones(256, device=cuda)
+    tgt = torch.zeros(256, dtype=torch.int32, device=cuda)
+    rows = (torch.ones(256, 4, dtype=torch.float64, device=cuda),)
+    with pytest.raises(TypeError):          # f32 values x f64 rows
+        blco_mttkrp.mttkrp_segments(vals, tgt, rows, tile=256)
+    with pytest.raises(TypeError):
+        blco_mttkrp.mttkrp_stash(vals, tgt, rows, out_rows=4)
+    with pytest.raises(TypeError):          # int64 targets
+        blco_mttkrp.mttkrp_segments(vals, tgt.long(),
+                                    (rows[0].float(),), tile=256)
+    hi = torch.zeros(256, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):          # index words must be uint32
+        delinearize(hi, hi, torch.zeros(256, 1, dtype=torch.int32,
+                                        device=cuda),
+                    field_bits=(8,), field_shifts=(0,))
