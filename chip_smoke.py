@@ -12,10 +12,13 @@ Phases, each of which exits non-zero when it fails:
    report are printed);
 2. kernels: K1 (segment), K2 (stash), K3 (delinearize), K4 (segments) and
    K5 (stash_phases) against their plain PyTorch versions on the card, at
-   orders 3-5, a field that straddles the two index words, forced blocking
-   (many launches), ragged nnz, R > 32 and the three (values, factors)
-   dtype pairs; K3 and K4's run targets must match exactly, K4 also at a
-   non-power-of-two tile over a ragged stream and at tile 1;
+   orders 3-5 and 8, a field that straddles the two index words, forced
+   blocking (many launches), ragged nnz, R in {1, 8, 16, 32, 33, 40, 64},
+   target modes of 1 and 2 rows (runs longer than a batch and a piece) and
+   the three (values, factors) dtype pairs; K1 and K2 also over a stream
+   whose length is no multiple of 32; K3 and K4's run targets must match
+   exactly, K4 also at a non-power-of-two tile over a ragged stream and at
+   tile 1;
 3. main path: NELL-2 and Uber at their FROSTT dims and nnz (synthesised
    from a seed), rank 32, through ``plan_for(kernel="cuda")`` and five
    CP-ALS sweeps, each held against the plain ``kernel="torch"`` path on
@@ -24,8 +27,13 @@ Phases, each of which exits non-zero when it fails:
    the fused and the plain outputs.  The launch counters are zeroed just
    before each of the two paths and read just after it;
 4. timing: each kernel and mode with CUDA events, beside the plain
-   version's time and the card's bound; the phases path per mode, phase by
-   phase, beside the fused kernel on the same mode;
+   version's time and the card's bound; for K1 and K2 also their launch
+   geometry (waves, resident warps per SM, batch depth), the L2 bytes their
+   gathers and updates move, the rate they reach and the share of the
+   updates that the hottest row takes; K1 also on every mode of a stream
+   without hot rows (NELL-2's dims and nnz drawn uniformly), held against
+   its plain version; the phases path per mode, phase by phase, beside the
+   fused kernel on the same mode;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -38,6 +46,7 @@ no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -70,7 +79,7 @@ INT32_OPS = 64 * 132 * 1.98e9
 # ||plain||_F: the JAX package's tests bound f32 at 5e-4; atomics only
 # reorder float additions, so f64 agrees to ~1e-15.  The Frobenius ratio
 # catches lost updates that the max-based one hides under a large output
-# (dropping the last update of every K1 chunk gives about 1e-2 at FROSTT
+# (dropping the last update of every K1 piece gives about 1e-2 at FROSTT
 # scale)
 REL_TOL = {"float32": 5e-4, "float64": 1e-10}
 # per-sweep CP-ALS fit, fused kernel vs plain path, both on the card in f32:
@@ -109,7 +118,15 @@ KERNEL_CASES = [
     ((128, 4, 256, 8, 3), 801, 16, 128, RANK),       # order 5
     ((2048, 2048, 2048), 20011, 64, 1 << 27, 40),    # straddling field, R > 32
     ((600, 90, 9), 5003, 64, 1 << 27, 8),            # long mode, narrow rank
+    ((70, 40, 30), 1777, 12, 512, 1),                # R = 1
+    ((1, 2, 300, 200), 3000, 64, 1 << 27, 16),       # 1- and 2-row modes
+    ((600, 90, 9), 1500, 64, 1 << 27, 33),           # R = 33
+    ((2, 3, 5, 4, 3, 2, 6, 7), 3000, 64, 1 << 27, 64),   # order 8, R = 64
+    # 196,608 slots: thousands of pieces, one run over the stream at mode 0
+    ((1, 1 << 16, 1 << 16), 1_000_000, 64, 1 << 27, RANK),
 ]
+# slots cut off the stream's end for K1/K2's second run: no multiple of 32
+RAGGED = 7
 
 
 def say(*parts) -> None:
@@ -167,25 +184,50 @@ def time_ms(fn, iters: int) -> float:
 
 
 # --------------------------------------------------------------- phase 1
+def demangle(names: list[str]) -> list[str]:
+    """C++ names as the source spells them (``cu++filt`` beside ``nvcc``);
+    the mangled ones where it is missing."""
+    from repro_torch.kernels.build import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cu++filt")
+    if not names or not os.path.isfile(tool):
+        return names
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                          text=True)
+    out = proc.stdout.splitlines()
+    return out if proc.returncode == 0 and len(out) == len(names) else names
+
+
 def build_phase() -> None:
     from repro_torch.kernels.build import load_libraries
     for name, kl in load_libraries().items():
         say(f"[build] {'built' if kl.built else 'loaded'} {kl.path.name} "
             f"(all libraries in {kl.seconds:.2f} s)")
-        for line in kl.log.splitlines():
+        lines = kl.log.splitlines()
+        entries = demangle([line.split(chr(39))[1] for line in lines
+                            if "Compiling entry function" in line])
+        for line in lines:
             if "Compiling entry function" in line:
-                say(f"[build] {name}: {line.split(chr(39))[1]}")
+                say(f"[build] {name}: {entries.pop(0)}")
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name}:   {line.strip()}")
 
 
 # --------------------------------------------------------------- phase 2
+def plain_fused(variant, hi, lo, vals, bases, fs, **kw):
+    """The plain version of K1 or K2 on the same inputs."""
+    from repro_torch.kernels import ref
+    if variant == "stash":
+        return ref.fused_stash_ref(hi, lo, vals, bases, fs, **kw)
+    return ref.fused_segment_mttkrp_ref(hi, lo, vals, bases, fs,
+                                        tile=math.gcd(hi.shape[0], 256), **kw)
+
+
 def kernel_phase(dev) -> None:
     """Every kernel against its plain version on small cases."""
     import torch
     from repro_torch.core import build_blco, choose_resolution, random_tensor
     from repro_torch.core.launches import LaunchCache
-    from repro_torch.kernels import fused, ref
+    from repro_torch.kernels import fused
 
     worst: dict = {}
     pairs = [(torch.float32, torch.float32), (torch.float64, torch.float64),
@@ -193,42 +235,48 @@ def kernel_phase(dev) -> None:
     for dims, nnz, tb, mx, rank in KERNEL_CASES:
         t = random_tensor(dims, nnz, seed=7, dist="powerlaw")
         b = build_blco(t, target_bits=tb, max_nnz_per_block=mx)
-        cache = LaunchCache.from_blco(b, device=dev)
-        hi, lo, vals, bases = cache.flat()
+        flat = LaunchCache.from_blco(b, device=dev).flat()
         rng = np.random.default_rng(SEED)
         host = [rng.standard_normal((d, rank)) for d in dims]
         for vdt, fdt in pairs:
-            v = vals.to(vdt)
             fs = [torch.as_tensor(h).to(device=dev, dtype=fdt) for h in host]
-            for mode in range(len(dims)):
-                for res in ("register", "hierarchical"):
-                    kw = dict(field_bits=b.re.field_bits,
-                              field_shifts=b.re.field_shift, mode=mode)
-                    out = fused.fused_mttkrp_flat(
-                        hi, lo, v, bases, fs, out_rows=dims[mode],
-                        resolution=res, **kw)
-                    variant = fused._variant_for(
-                        res, dims[mode], rank=rank, itemsize=out.element_size())
-                    if variant == "stash":
-                        plain = ref.fused_stash_ref(hi, lo, v, bases, fs,
-                                                    out_rows=dims[mode], **kw)
-                    else:
-                        plain = ref.fused_segment_mttkrp_ref(
-                            hi, lo, v, bases, fs, out_rows=dims[mode],
-                            tile=math.gcd(hi.shape[0], 256), **kw)
-                    torch.cuda.synchronize()
-                    if out.shape != (dims[mode], rank) or out.dtype != \
-                            torch.promote_types(vdt, fdt):
-                        raise AssertionError(f"bad output {out.shape} "
-                                             f"{out.dtype}")
-                    rel, fro, _ = check_err(
-                        f"{variant} kernel vs its plain version: dims {dims} "
-                        f"mode {mode} {vdt}x{fdt}", out, plain)
-                    key = (variant, str(out.dtype).replace("torch.", ""))
-                    worst[key] = max(worst.get(key, 0.0), rel, fro)
-        say(f"[kernels] dims {dims} nnz {b.nnz} fields {b.re.field_bits} "
-            f"shifts {b.re.field_shift} launches {len(b.launches)} R {rank}: "
-            f"ok (resolution {[choose_resolution(d) for d in dims]})")
+            for cut, mode, res in itertools.product(
+                    (0, RAGGED), range(len(dims)), ("register",
+                                                    "hierarchical")):
+                hi, lo, v, bases = (x[:x.shape[0] - cut] for x in flat)
+                v = v.to(vdt)
+                kw = dict(field_bits=b.re.field_bits,
+                          field_shifts=b.re.field_shift, mode=mode,
+                          out_rows=dims[mode])
+                out = fused.fused_mttkrp_flat(hi, lo, v, bases, fs,
+                                              resolution=res, **kw)
+                variant = fused._variant_for(res, dims[mode], rank=rank,
+                                             itemsize=out.element_size())
+                plain = plain_fused(variant, hi, lo, v, bases, fs, **kw)
+                torch.cuda.synchronize()
+                if out.shape != (dims[mode], rank) or out.dtype != \
+                        torch.promote_types(vdt, fdt):
+                    raise AssertionError(f"bad output {out.shape} "
+                                         f"{out.dtype}")
+                rel, fro, _ = check_err(
+                    f"{variant} kernel vs its plain version: dims {dims} "
+                    f"mode {mode} {vdt}x{fdt}, T {hi.shape[0]}", out, plain)
+                key = (variant, str(out.dtype).replace("torch.", ""))
+                worst[key] = max(worst.get(key, 0.0), rel, fro)
+                geo = fused.kernel_geometry(variant, vdt, fdt, len(dims),
+                                            dims[mode], rank, hi.shape[0],
+                                            dev)
+                if geo.waves != 1:
+                    raise AssertionError(f"{variant} launched in "
+                                         f"{geo.waves} waves: {geo}")
+        geo = fused.kernel_geometry("segment", torch.float32, torch.float32,
+                                    len(dims), dims[0], rank,
+                                    flat[0].shape[0], dev)
+        say(f"[kernels] dims {dims} nnz {b.nnz} T {flat[0].shape[0]} (and "
+            f"T - {RAGGED}) fields {b.re.field_bits} shifts "
+            f"{b.re.field_shift} launches {len(b.launches)} R {rank}: ok "
+            f"(resolution {[choose_resolution(d) for d in dims]}; f32 K1 "
+            f"{geo.blocks} CTAs, pieces of {geo.chunk}, batch {geo.batch})")
     for (variant, dname), rel in sorted(worst.items()):
         say(f"[kernels] worst rel err (max-rel or Frobenius-rel) {variant} "
             f"{dname}: {rel:.3e}")
@@ -307,14 +355,19 @@ def phase_kernels_phase(dev) -> None:
 
 
 # --------------------------------------------------------------- phase 3
+def stream_targets(cache, mode):
+    """Every slot's target index in the padded stream's (ALTO) order."""
+    from repro_torch.core import u64
+    hi, lo, _, bases = cache.flat()
+    return u64.extract_field(hi, lo, cache.re_shifts[mode],
+                             cache.re_fields[mode]) + bases[:, mode]
+
+
 def mean_run_length(cache, mode) -> float:
     """Non-zeros per run of equal target index in the stream's (ALTO)
     order: K1 issues one update per column per run."""
-    from repro_torch.core import u64
-    hi, lo, vals, bases = cache.flat()
-    tgt = u64.extract_field(hi, lo, cache.re_shifts[mode],
-                            cache.re_fields[mode]) + bases[:, mode]
-    tgt = tgt[vals != 0]                  # padding slots hold the value 0
+    tgt = stream_targets(cache, mode)
+    tgt = tgt[cache.flat()[2] != 0]       # padding slots hold the value 0
     runs = 1 + int((tgt[1:] != tgt[:-1]).sum())
     return tgt.numel() / runs
 
@@ -501,8 +554,61 @@ def add_row(rows, kernel, ms, plain_ms, bound_ms, by, diff) -> None:
     row["calls"] += 1
 
 
+def update_count(cache, mode, chunk) -> tuple[int, int]:
+    """Updates of one K1/K2 call, one per run of equal target in each piece
+    of the padded stream (padding slots included, as the kernel walks
+    them), and how many of them the hottest row takes."""
+    import torch
+    tgt = stream_targets(cache, mode)
+    starts = torch.ones_like(tgt, dtype=torch.bool)
+    starts[1:] = tgt[1:] != tgt[:-1]
+    starts[::chunk] = True
+    return (int(starts.sum()),
+            int(torch.bincount(tgt[starts].long()).max()))
+
+
+def geometry_line(name, cache, dims, mode, variant, ms) -> str:
+    """K1/K2's launch geometry, the L2 bytes its gathers and updates move
+    (for K1 an upper bound: runs whose target holds a slot of the CTA's
+    table are summed in shared memory), the rate they reach in ``ms`` and
+    the hottest row's share of the updates."""
+    import torch
+    from repro_torch.kernels import fused
+    t = cache.flat()[0].shape[0]
+    n = len(dims)
+    d = dims[mode]
+    geo = fused.kernel_geometry(variant, torch.float32, torch.float32, n, d,
+                                RANK, t, cache.device)
+    if geo.waves != 1:
+        raise AssertionError(f"{name} mode {mode}: {variant} takes "
+                             f"{geo.waves} waves: {geo}")
+    row = RANK * 4
+    most = "at most " if variant == "segment" else ""
+    gathers = t * (n - 1) * row
+    updates, hottest = update_count(cache, mode, geo.chunk)
+    if variant == "stash":       # runs go to shared memory; the merge to L2
+        l2 = gathers + geo.blocks * d * row
+        upd = (f"{updates} shared-memory updates, merge <= {geo.blocks} x "
+               f"{d} rows ({row} B each)")
+    else:           # a run whose target holds a slot of the CTA's table
+        l2 = gathers + updates * row        # goes to shared memory: at most
+        upd = f"<= {updates} updates ({row} B each)"
+    return (f"[geometry] {name} mode {mode} {variant}: {geo.waves} wave, "
+            f"{geo.blocks} CTAs x {geo.threads} threads, "
+            f"{geo.warps_per_sm} resident warps per SM ({geo.blocks_per_sm} "
+            f"CTAs), batch depth B {geo.batch}, {cdiv(t, geo.chunk)} pieces "
+            f"of {geo.chunk} slots; L2 bytes per call: gathers "
+            f"{gathers / 1e9:.4f} GB + {upd} = {most}{l2 / 1e9:.4f} GB, "
+            f"{most}{l2 / ms / 1e9:.3f} TB/s; the hottest row takes "
+            f"{hottest} updates ({hottest / updates:.4f} of them)")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def timing_phase(runs) -> dict:
-    from repro_torch.kernels import fused, ref
+    from repro_torch.kernels import fused
     rows = {v: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
                 "max_abs_err": 0.0, "calls": 0} for v in KERNELS}
     for run in runs:
@@ -515,19 +621,16 @@ def timing_phase(runs) -> dict:
                       mode=mode, out_rows=d)
             kernel = lambda: fused.fused_mttkrp_flat(hi, lo, vals, bases, fs,
                                                      resolution=res, **kw)
-            if variant == "stash":
-                plain = lambda: ref.fused_stash_ref(hi, lo, vals, bases, fs,
-                                                    **kw)
-            else:
-                plain = lambda: ref.fused_segment_mttkrp_ref(
-                    hi, lo, vals, bases, fs, tile=math.gcd(hi.shape[0], 256),
-                    **kw)
+            plain = lambda: plain_fused(variant, hi, lo, vals, bases, fs,
+                                        **kw)
             ms = time_ms(kernel, 20)
             plain_ms = time_ms(plain, 3)
             rel, fro, diff = check_err(
                 f"{run['name']} mode {mode}: {variant} kernel", kernel(),
                 plain())
             b_ms, by = bound(run["nnz"], run["dims"], mode, RANK)
+            say(geometry_line(run["name"], cache, run["dims"], mode, variant,
+                              ms))
             say(f"[timing] {run['name']} mode {mode} {variant}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({by}), {b_ms / ms:.3f} of the bound; max-rel {rel:.3e}, "
@@ -537,6 +640,47 @@ def timing_phase(runs) -> dict:
             add_row(rows, variant, ms, plain_ms, b_ms, by, diff)
             run["fused_ms"][mode] = ms
     return rows
+
+
+def uniform_timing(dev) -> None:
+    """K1 on every mode of a stream without hot rows: NELL-2's dims and nnz,
+    every coordinate drawn uniformly (the main path's tensors have a
+    powerlaw head, whose hottest rows K1's per-CTA table takes off L2)."""
+    import torch
+    from repro_torch.core import (SparseTensor, build_blco, choose_resolution,
+                                  init_factors, top_up_uniform)
+    from repro_torch.core.launches import LaunchCache
+    from repro_torch.kernels import fused
+    name = "nell-2-uniform"
+    dims, nnz = TENSORS["nell-2"]
+    t0 = time.perf_counter()
+    empty = SparseTensor(dims, np.zeros((0, len(dims)), np.int64),
+                         np.zeros(0, np.float32))
+    b = build_blco(top_up_uniform(empty, nnz, seed=SEED))
+    cache = LaunchCache.from_blco(b, device=dev)
+    hi, lo, vals, bases = cache.flat()
+    fs = init_factors(dims, RANK, seed=SEED, device=dev)
+    say(f"[uniform] {name}: dims {dims} nnz {b.nnz}, T {hi.shape[0]}, "
+        f"host generation + build_blco + upload "
+        f"{time.perf_counter() - t0:.1f} s")
+    for mode, d in enumerate(dims):
+        variant = fused._variant_for(choose_resolution(d), d, rank=RANK,
+                                     itemsize=4)
+        kw = dict(field_bits=cache.re_fields, field_shifts=cache.re_shifts,
+                  mode=mode, out_rows=d)
+        kernel = lambda: fused.fused_mttkrp_flat(hi, lo, vals, bases, fs,
+                                                 **kw)
+        ms = time_ms(kernel, 20)
+        rel, fro, _ = check_err(f"{name} mode {mode}: {variant} kernel",
+                                kernel(), plain_fused(variant, hi, lo, vals,
+                                                      bases, fs, **kw))
+        say(geometry_line(name, cache, dims, mode, variant, ms))
+        say(f"[uniform] {name} mode {mode} {variant}: kernel {ms:.4f} ms; "
+            f"max-rel {rel:.3e}, Frobenius-rel {fro:.3e}; mean run of equal "
+            f"target {mean_run_length(cache, mode):.4f} non-zeros")
+    del hi, lo, vals, bases
+    cache.delete()
+    torch.cuda.empty_cache()
 
 
 def phases_timing(runs, rows) -> None:
@@ -738,6 +882,7 @@ def main() -> int:
     launches.update({k: phase_launches[k] for k in PHASES})
 
     rows = timing_phase(runs)
+    uniform_timing(dev)
     phases_timing(runs, rows)
     dispatch_phase(dev)
     entries = []

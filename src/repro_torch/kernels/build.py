@@ -63,14 +63,19 @@ def nvcc_path() -> str:
 def _bind_fused(lib: ctypes.CDLL) -> None:
     lib.fused_mttkrp_launch.argtypes = [
         _I, _I, _VP, _VP, _VP, _VP, ctypes.POINTER(_VP), _I, _I,
-        ctypes.POINTER(_I), ctypes.POINTER(_I), _LL, _I, _I, _VP, _VP]
+        ctypes.POINTER(_I), ctypes.POINTER(_I), _LL, _I, _I, _I, _LL, _VP,
+        _VP, _VP]
     lib.fused_mttkrp_launch.restype = _I
+    lib.fused_mttkrp_occupancy.argtypes = [
+        _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+        ctypes.POINTER(_I)]
+    lib.fused_mttkrp_occupancy.restype = _I
     lib.fused_mttkrp_error_string.argtypes = [_I]
     lib.fused_mttkrp_error_string.restype = ctypes.c_char_p
-    lib.fused_mttkrp_max_order.argtypes = []
-    lib.fused_mttkrp_max_order.restype = _I
-    lib.fused_mttkrp_stash_max_bytes.argtypes = []
-    lib.fused_mttkrp_stash_max_bytes.restype = _I
+    for name in ("fused_mttkrp_max_order", "fused_mttkrp_stash_max_bytes",
+                 "fused_mttkrp_threads"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
 
 
 def _bind_phases(lib: ctypes.CDLL) -> None:

@@ -14,7 +14,10 @@ paper:
     merges it once.
 
 Inputs come straight from the device-resident launch cache
-(``LaunchCache.flat()``): no per-call host work, one launch per call.
+(``LaunchCache.flat()``): no per-call host work, one launch per call.  Each
+launch is exactly one wave of warps (``launch_geometry``), from an
+occupancy query made once per (kernel, dtype pair, order, shared memory,
+device).
 
 A wrapper given CUDA tensors launches its kernel or raises; there is no
 fallback.  Given CPU tensors it runs the kernel's plain PyTorch version in
@@ -24,6 +27,8 @@ each variant's kernel launches, on the card only.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -41,6 +46,9 @@ VARIANTS = ("segment", "stash")
 # the stash variant is for short target modes (§5.3); its (out_rows, R)
 # stash must also fit one CTA's shared memory on Hopper (STASH_MAX_BYTES)
 STASH_MAX_ROWS = 4 * CONTENTION_THRESHOLD
+# pieces of the stream per warp: enough that warps on faster SMs can take
+# more, few enough that a piece holds many batches at FROSTT scale
+PIECES_PER_WARP = 8
 
 
 def _variant_for(resolution: str, out_rows: int, *, rank: int,
@@ -81,15 +89,100 @@ def _check_inputs(hi, lo, vals, bases, factors, field_bits, field_shifts,
     check_contiguous(hi, lo, vals, bases, *factors)
 
 
+def launch_geometry(t: int, sms: int, blocks_per_sm: int,
+                    threads: int) -> tuple[int, int]:
+    """``(blocks, chunk)`` for one wave over a stream of ``t`` slots: the
+    warps take the stream's ``ceil(t / chunk)`` pieces of ``chunk`` slots (a
+    multiple of 32) in turn, about ``PIECES_PER_WARP`` each, and no more
+    CTAs of ``threads`` threads are launched than ``sms * blocks_per_sm``
+    hold at once, nor than the pieces keep busy."""
+    if t < 1 or sms < 1 or blocks_per_sm < 1 or threads < 32 or threads % 32:
+        raise ValueError(f"no launch geometry for t={t}, sms={sms}, "
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads}")
+    per_block = threads // 32
+    resident = sms * blocks_per_sm
+    chunk = -(-t // (resident * per_block * PIECES_PER_WARP))
+    chunk = -(-chunk // 32) * 32
+    pieces = -(-t // chunk)
+    return min(resident, -(-pieces // per_block)), chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one launch of K1 or K2 lies on the card."""
+    blocks: int             # CTAs of ``threads`` threads
+    chunk: int              # slots per piece, a multiple of 32
+    threads: int
+    sms: int
+    blocks_per_sm: int      # resident CTAs per SM, from the occupancy query
+    batch: int              # the kernel's batch depth B
+
+    @property
+    def waves(self) -> int:
+        return -(-self.blocks // (self.sms * self.blocks_per_sm))
+
+    @property
+    def warps_per_sm(self) -> int:
+        """Resident warps per SM."""
+        return self.blocks_per_sm * self.threads // 32
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(variant: str, dtype_pair: int, n_modes: int, smem: int,
+               device_index: int) -> tuple[int, int, int, int]:
+    """(SMs, resident CTAs per SM, batch depth, threads per CTA) of the
+    kernel a launch would take; asked of the card once per key."""
+    from .build import load_library
+    lib = load_library("fused_mttkrp").lib
+    sms, per_sm, batch = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = lib.fused_mttkrp_occupancy(
+            VARIANTS.index(variant), dtype_pair, n_modes, smem,
+            ctypes.byref(sms), ctypes.byref(per_sm), ctypes.byref(batch))
+    raise_on_error(err, lib.fused_mttkrp_error_string,
+                   f"fused MTTKRP {variant} occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError(f"fused MTTKRP {variant}: no CTA fits an SM "
+                           f"(occupancy 0, {smem} B of shared memory)")
+    return sms.value, per_sm.value, batch.value, lib.fused_mttkrp_threads()
+
+
+def kernel_geometry(variant: str, vals_dtype, factor_dtype, n_modes: int,
+                    out_rows: int, rank: int, t: int,
+                    device: torch.device) -> Geometry:
+    """The one-wave geometry of a launch of ``variant`` on ``device``."""
+    out_dtype = torch.promote_types(vals_dtype, factor_dtype)
+    smem = out_rows * rank * out_dtype.itemsize if variant == "stash" else 0
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms, per_sm, batch, threads = _occupancy(
+        variant, DTYPE_PAIRS[(vals_dtype, factor_dtype)], n_modes, smem,
+        index)
+    blocks, chunk = launch_geometry(t, sms, per_sm, threads)
+    return Geometry(blocks, chunk, threads, sms, per_sm, batch)
+
+
 def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
-            field_shifts, mode, out_rows, out_dtype):
-    """Launch one kernel on the tensors' card and return its output."""
+            field_shifts, mode, out_rows, out_dtype, layout=None):
+    """Launch one kernel on the tensors' card and return its output.
+
+    ``layout`` = ``(blocks, chunk)`` replaces the one-wave geometry; the
+    tests pin piece edges with it."""
     from .build import load_library
     lib = load_library("fused_mttkrp").lib
     n = len(field_bits)
     t = hi.shape[0]
     rank = factors[0].shape[1]
-    out = torch.zeros((out_rows, rank), dtype=out_dtype, device=hi.device)
+    geo = kernel_geometry(variant, vals.dtype, factors[0].dtype, n, out_rows,
+                          rank, t, hi.device)
+    blocks, chunk = layout or (geo.blocks, geo.chunk)
+    # one zeroed buffer, one memset: the output, then the kernel's piece
+    # counters (one per column group of 32)
+    words = -(-out_rows * rank * out_dtype.itemsize // 8)
+    buf = torch.zeros(words + -(-rank // 32), dtype=torch.int64,
+                      device=hi.device)
+    out = buf.view(out_dtype)[:out_rows * rank].view(out_rows, rank)
+    pieces = buf[words:]
     ptrs = (ctypes.c_void_p * n)(*(f.data_ptr() for f in factors))
     shifts = (ctypes.c_int * n)(*field_shifts)
     widths = (ctypes.c_int * n)(*field_bits)
@@ -99,8 +192,8 @@ def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
             VARIANTS.index(variant), DTYPE_PAIRS[(vals.dtype,
                                                  factors[0].dtype)],
             hi.data_ptr(), lo.data_ptr(), vals.data_ptr(), bases.data_ptr(),
-            ptrs, n, mode, shifts, widths, t, rank, out_rows, out.data_ptr(),
-            stream)
+            ptrs, n, mode, shifts, widths, t, rank, out_rows, blocks, chunk,
+            pieces.data_ptr(), out.data_ptr(), stream)
     raise_on_error(err, lib.fused_mttkrp_error_string,
                    f"fused MTTKRP {variant}")
     launch_counts[variant] += 1

@@ -19,13 +19,29 @@ from repro_torch import core  # noqa: E402
 from repro_torch.core.launches import LaunchCache  # noqa: E402
 from repro_torch.kernels import fused, ref  # noqa: E402
 
+
+def _case(dims, nnz, tb, mx, *, rank=8, cut=0, id):
+    """One stream: ``rank`` columns, ``cut`` slots cut off its end."""
+    return pytest.param(dims, nnz, tb, mx, rank, cut, id=id)
+
+
 # tests/test_fused.py's CASES (ragged nnz: every launch ends in padding
-# slots) plus a field that straddles the two index words
+# slots) plus a field that straddles the two index words, then the edges of
+# the kernels' batched walk: a stream whose length is not a multiple of 32,
+# target modes of 1 and 2 rows (one run over the whole stream, longer than
+# any batch or chunk), R in {1, 16, 33, 64}, and order 8 (MAX_ORDER)
 CASES = [
-    ((70, 40, 30), 1777, 12, 512),             # order 3
-    ((13, 7, 29, 5), 499, 8, 64),              # order 4, forced blocking
-    ((128, 4, 256, 8, 3), 801, 16, 128),       # order 5
-    ((2048, 2048, 2048), 3001, 64, 1 << 27),   # mode-2 field shift 22, width 11
+    _case((70, 40, 30), 1777, 12, 512, id="dims0-1777-12-512"),   # order 3
+    _case((13, 7, 29, 5), 499, 8, 64,                 # order 4, forced blocking
+          id="dims1-499-8-64"),
+    _case((128, 4, 256, 8, 3), 801, 16, 128, id="dims2-801-16-128"),
+    _case((2048, 2048, 2048), 3001, 64, 1 << 27,      # mode-2 field shift 22
+          id="dims3-3001-64-134217728"),
+    _case((70, 40, 30), 1777, 12, 512, rank=1, cut=40, id="rank1-T984"),
+    _case((1, 2, 300, 200), 3000, 64, 1 << 27, rank=16, id="rows1-rows2"),
+    _case((600, 90, 9), 1500, 64, 1 << 27, rank=33, id="rank33"),
+    _case((2, 3, 5, 4, 3, 2, 6, 7), 3000, 64, 1 << 27, rank=64,
+          id="order8-rank64"),
 ]
 F32_TOL = 5e-4      # max-rel bound of the JAX package's kernel tests
 
@@ -36,7 +52,9 @@ def _rel(a, b):
     return np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-30)
 
 
-def _streams(dims, nnz, tb, mx, rank=8):
+def _streams(dims, nnz, tb, mx, rank=8, cut=0):
+    """The tensor, its BLCO, the reference's and the port's launch caches
+    and numpy factors; ``cut`` is applied by ``_flat``."""
     t = rcore.random_tensor(dims, nnz, seed=7, dist="powerlaw")
     b = core.build_blco(core.random_tensor(dims, nnz, seed=7,
                                            dist="powerlaw"),
@@ -50,31 +68,40 @@ def _streams(dims, nnz, tb, mx, rank=8):
     return t, b, rc, pc, factors
 
 
+def _flat(cache, cut):
+    """The cache's flat stream without its last ``cut`` slots."""
+    return tuple(x[:x.shape[0] - cut] for x in cache.flat())
+
+
 @pytest.mark.parametrize("resolution", ["register", "hierarchical"])
-@pytest.mark.parametrize("dims,nnz,tb,mx", CASES)
-def test_plain_kernels_match_pallas_interpret(dims, nnz, tb, mx, resolution):
-    t, b, rc, pc, factors = _streams(dims, nnz, tb, mx)
+@pytest.mark.parametrize("dims,nnz,tb,mx,rank,cut", CASES)
+def test_plain_kernels_match_pallas_interpret(dims, nnz, tb, mx, rank, cut,
+                                              resolution):
+    t, b, rc, pc, factors = _streams(dims, nnz, tb, mx, rank)
     ft = [torch.from_numpy(f) for f in factors]
-    rflat, pflat = rc.flat(), pc.flat()
+    rflat, pflat = _flat(rc, cut), _flat(pc, cut)
+    # the dense oracle holds while only padding slots (value 0) are cut
+    whole = not pc.flat()[2][pflat[0].shape[0]:].any()
     for mode in range(len(dims)):
         kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift,
                   mode=mode, out_rows=dims[mode], resolution=resolution)
         want = ref_fused(*rflat, factors, interpret=True, **kw)
         got = fused.fused_mttkrp_flat(*pflat, ft, **kw)
-        assert got.shape == (dims[mode], 8) and got.dtype == torch.float32
+        assert got.shape == (dims[mode], rank) and got.dtype == torch.float32
         assert _rel(got, want) < F32_TOL, (mode, resolution)
-        if math.prod(dims) < 1 << 24:
+        if whole and math.prod(dims) < 1 << 24:
             assert _rel(got, rcore.mttkrp_dense_oracle(t, factors, mode)) \
                 < F32_TOL
 
 
-@pytest.mark.parametrize("dims,nnz,tb,mx", CASES)
-def test_segment_outputs_match_reference_segments(dims, nnz, tb, mx):
+@pytest.mark.parametrize("dims,nnz,tb,mx,rank,cut", CASES)
+def test_segment_outputs_match_reference_segments(dims, nnz, tb, mx, rank,
+                                                  cut):
     """K1's per-tile (seg_tgt, seg_sums) with the reference's tile rule."""
-    _, b, rc, pc, factors = _streams(dims, nnz, tb, mx)
+    _, b, rc, pc, factors = _streams(dims, nnz, tb, mx, rank)
     ft = [torch.from_numpy(f) for f in factors]
-    hi, lo, vals, bases = pc.flat()
-    rhi, rlo, rvals, rbases = rc.flat()
+    hi, lo, vals, bases = _flat(pc, cut)
+    rhi, rlo, rvals, rbases = _flat(rc, cut)
     coords = rref.delinearize_ref(rhi, rlo, rbases,
                                   field_bits=b.re.field_bits,
                                   field_shifts=b.re.field_shift)
@@ -98,7 +125,7 @@ def test_segment_outputs_match_reference_segments(dims, nnz, tb, mx):
 
 
 def test_plain_stash_matches_reference_stash():
-    _, b, rc, pc, factors = _streams(*CASES[1])
+    _, b, rc, pc, factors = _streams(*CASES[1].values)
     ft = [torch.from_numpy(f) for f in factors]
     rhi, rlo, rvals, rbases = rc.flat()
     coords = rref.delinearize_ref(rhi, rlo, rbases,
@@ -138,7 +165,7 @@ def test_variant_rule_rows_and_shared_memory():
 
 
 def test_cpu_dispatch_runs_the_plain_version():
-    _, b, _, pc, factors = _streams(*CASES[0])
+    _, b, _, pc, factors = _streams(*CASES[0].values)
     ft = [torch.from_numpy(f) for f in factors]
     hi, lo, vals, bases = pc.flat()
     kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift)
@@ -173,7 +200,7 @@ def test_empty_cache_and_closed_cache():
 
 
 def test_kernel_input_checks():
-    _, b, _, pc, factors = _streams(*CASES[0])
+    _, b, _, pc, factors = _streams(*CASES[0].values)
     hi, lo, vals, bases = pc.flat()
     ft = [torch.from_numpy(f) for f in factors]
     fb, fs = b.re.field_bits, b.re.field_shift
@@ -193,3 +220,27 @@ def test_kernel_input_checks():
                             fs, 0)
     with pytest.raises(ValueError):          # mode out of range
         fused._check_inputs(hi, lo, vals, bases, ft, fb, fs, 3)
+
+
+# NELL-2's and Uber's padded streams at full size, and tiny ones
+@pytest.mark.parametrize("t", [83_886_080, 3_670_016, 1, 31, 33, 5120])
+@pytest.mark.parametrize("sms,per_sm", [(132, 2), (132, 5), (1, 1)])
+def test_launch_geometry_is_one_wave_covering_t_once(t, sms, per_sm):
+    blocks, chunk = fused.launch_geometry(t, sms, per_sm, 256)
+    pieces = -(-t // chunk)
+    assert chunk >= 32 and chunk % 32 == 0
+    assert (pieces - 1) * chunk < t <= pieces * chunk   # each slot once
+    assert 1 <= blocks <= sms * per_sm                  # one wave
+    assert (blocks - 1) * 8 < pieces      # no CTA without a piece to take
+    assert pieces <= sms * per_sm * 8 * fused.PIECES_PER_WARP
+    if t >= 32 * 8 * fused.PIECES_PER_WARP * sms * per_sm:
+        assert blocks == sms * per_sm     # a large stream fills the wave
+    geo = fused.Geometry(blocks, chunk, 256, sms, per_sm, 32)
+    assert geo.waves == 1 and geo.warps_per_sm == 8 * per_sm
+
+
+def test_launch_geometry_refuses_what_cannot_launch():
+    for args in ((0, 132, 2, 256), (100, 132, 0, 256), (100, 0, 2, 256),
+                 (100, 132, 2, 48)):
+        with pytest.raises(ValueError):
+            fused.launch_geometry(*args)

@@ -25,13 +25,23 @@ from repro_torch.kernels import (blco_mttkrp, common, cuda_mttkrp_phases,
 pytestmark = pytest.mark.gpu
 
 # (dims, nnz, target_bits, max_nnz_per_block, rank): orders 3-5 with ragged
-# nnz, forced blocking, a field straddling the two index words with R > 32
+# nnz, forced blocking, a field straddling the two index words with R > 32;
+# then the edges of K1/K2's batched walk: R in {1, 16, 33, 64}, target modes
+# of 1 and 2 rows (one run over the whole stream), order 8 (MAX_ORDER), and
+# a stream of 196,608 slots, many pieces per warp
 CASES = [
     ((70, 40, 30), 1777, 12, 512, 8),
     ((13, 7, 29, 5), 499, 8, 64, 32),
     ((128, 4, 256, 8, 3), 801, 16, 128, 16),
     ((2048, 2048, 2048), 6007, 64, 1 << 27, 40),
+    ((70, 40, 30), 1777, 12, 512, 1),
+    ((1, 2, 300, 200), 3000, 64, 1 << 27, 16),
+    ((600, 90, 9), 1500, 64, 1 << 27, 33),
+    ((2, 3, 5, 4, 3, 2, 6, 7), 3000, 64, 1 << 27, 64),
+    ((1, 1 << 16, 1 << 16), 1_000_000, 64, 1 << 27, 32),
 ]
+# slots cut off the stream's end in the K1/K2 test: T - 7 is no multiple of 32
+RAGGED = 7
 PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
          (torch.float64, torch.float32)]
 # max |kernel - plain| / max |plain|: 5e-4 in f32 (the JAX package's kernel
@@ -51,37 +61,99 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _plain(variant, hi, lo, vals, bases, fs, **kw):
+    if variant == "stash":
+        return ref.fused_stash_ref(hi, lo, vals, bases, fs, **kw)
+    return ref.fused_segment_mttkrp_ref(hi, lo, vals, bases, fs,
+                                        tile=math.gcd(hi.shape[0], 256), **kw)
+
+
 @pytest.mark.parametrize("pair", PAIRS, ids=["f32", "f64", "f64xf32"])
 @pytest.mark.parametrize("dims,nnz,tb,mx,rank", CASES)
 def test_kernels_match_plain_versions(cuda, dims, nnz, tb, mx, rank, pair):
+    """K1 and K2 on the whole stream and on one whose length is no multiple
+    of 32, each launch one wave."""
     vdt, fdt = pair
     t = core.random_tensor(dims, nnz, seed=7, dist="powerlaw")
     b = core.build_blco(t, target_bits=tb, max_nnz_per_block=mx)
-    hi, lo, vals, bases = LaunchCache.from_blco(b, device=cuda).flat()
-    vals = vals.to(vdt)
+    flat = LaunchCache.from_blco(b, device=cuda).flat()
     rng = np.random.default_rng(0)
     fs = [torch.as_tensor(rng.standard_normal((d, rank))).to(cuda, fdt)
           for d in dims]
-    for mode, d in enumerate(dims):
+    for cut in (0, RAGGED):
+        hi, lo, vals, bases = (x[:x.shape[0] - cut] for x in flat)
+        vals = vals.to(vdt)
+        for mode, d in enumerate(dims):
+            kw = dict(field_bits=b.re.field_bits,
+                      field_shifts=b.re.field_shift, mode=mode, out_rows=d)
+            for res in ("register", "hierarchical"):
+                before = dict(fused.launch_counts)
+                out = fused.fused_mttkrp_flat(hi, lo, vals, bases, fs,
+                                              resolution=res, **kw)
+                variant = fused._variant_for(res, d, rank=rank,
+                                             itemsize=out.element_size())
+                assert fused.launch_counts[variant] == before[variant] + 1
+                geo = fused.kernel_geometry(variant, vdt, fdt, len(dims), d,
+                                            rank, hi.shape[0], cuda)
+                assert geo.waves == 1, geo
+                want = _plain(variant, hi, lo, vals, bases, fs, **kw)
+                torch.cuda.synchronize()
+                assert out.dtype == torch.promote_types(vdt, fdt)
+                assert out.shape == (d, rank)
+                assert _rel(out, want) < REL_TOL[out.dtype], \
+                    (cut, mode, res, variant)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=["f32", "f64", "f64xf32"])
+def test_piece_edges_match_plain_versions(cuda, pair):
+    """Pinned (blocks, chunk) layouts: a run of one target over the whole
+    stream (a 1-row mode) and runs of a 2-row mode cross batches inside a
+    piece, piece boundaries (many pieces per warp, or one), and a last piece
+    shorter than a batch."""
+    vdt, fdt = pair
+    t = core.random_tensor((1, 2, 300, 200), 3000, seed=7, dist="powerlaw")
+    b = core.build_blco(t, target_bits=64, max_nnz_per_block=1 << 27)
+    hi, lo, vals, bases = (x[:x.shape[0] - RAGGED] for x in
+                           LaunchCache.from_blco(b, device=cuda).flat())
+    vals = vals.to(vdt)
+    n = hi.shape[0]
+    rng = np.random.default_rng(0)
+    fs = [torch.as_tensor(rng.standard_normal((d, 33))).to(cuda, fdt)
+          for d in b.dims]
+    out_dtype = torch.promote_types(vdt, fdt)
+    for mode in (0, 1):
         kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift,
-                  mode=mode, out_rows=d)
-        for res in ("register", "hierarchical"):
-            before = dict(fused.launch_counts)
-            out = fused.fused_mttkrp_flat(hi, lo, vals, bases, fs,
-                                          resolution=res, **kw)
-            variant = fused._variant_for(res, d, rank=rank,
-                                         itemsize=out.element_size())
-            assert fused.launch_counts[variant] == before[variant] + 1
-            if variant == "stash":
-                want = ref.fused_stash_ref(hi, lo, vals, bases, fs, **kw)
-            else:
-                want = ref.fused_segment_mttkrp_ref(
-                    hi, lo, vals, bases, fs, tile=math.gcd(hi.shape[0], 256),
-                    **kw)
-            torch.cuda.synchronize()
-            assert out.dtype == torch.promote_types(vdt, fdt)
-            assert out.shape == (d, rank)
-            assert _rel(out, want) < REL_TOL[out.dtype], (mode, res, variant)
+                  mode=mode, out_rows=b.dims[mode])
+        for layout in ((1, 32), (2, 64), (5, 96), (1, -(-n // 256) * 32)):
+            for variant in fused.VARIANTS:
+                out = fused._launch(variant, hi, lo, vals, bases, fs,
+                                    out_dtype=out_dtype, layout=layout, **kw)
+                want = _plain(variant, hi, lo, vals, bases, fs, **kw)
+                torch.cuda.synchronize()
+                assert _rel(out, want) < REL_TOL[out_dtype], \
+                    (mode, layout, variant)
+
+
+def test_occupancy_is_asked_once_and_a_bad_layout_raises(cuda):
+    t = core.random_tensor((30, 20, 10), 300, seed=1)
+    b = core.build_blco(t)
+    hi, lo, vals, bases = LaunchCache.from_blco(b, device=cuda).flat()
+    fs = [torch.ones(d, 4, device=cuda) for d in b.dims]
+    kw = dict(field_bits=b.re.field_bits, field_shifts=b.re.field_shift,
+              mode=0, out_rows=30)
+    fused._occupancy.cache_clear()
+    for _ in range(3):
+        fused.fused_mttkrp_flat(hi, lo, vals, bases, fs,
+                                resolution="register", **kw)
+    assert fused._occupancy.cache_info().misses == 1
+    geo = fused.kernel_geometry("segment", vals.dtype, fs[0].dtype, 3, 30, 4,
+                                hi.shape[0], cuda)
+    assert geo.waves == 1 and geo.batch in (16, 32)
+    assert geo.sms == torch.cuda.get_device_properties(0).multi_processor_count
+    for layout in ((1, 48), (0, 32)):       # not 32 | chunk; no CTA
+        with pytest.raises(RuntimeError):
+            fused._launch("segment", hi, lo, vals, bases, fs,
+                          out_dtype=torch.float32, layout=layout, **kw)
 
 
 def test_plan_is_one_launch_per_call(cuda):
