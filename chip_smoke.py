@@ -18,7 +18,9 @@ Phases, each of which exits non-zero when it fails:
    the three (values, factors) dtype pairs; K1 and K2 also over a stream
    whose length is no multiple of 32; K3 and K4's run targets must match
    exactly, K4 also at a non-power-of-two tile over a ragged stream and at
-   tile 1;
+   tile 1, through both of the ways it fills its stages (bulk copies where
+   every span is 16-byte aligned, cp.async where not: a stream of 63
+   slots, tensors that start one slot into their storage);
 3. main path: NELL-2 and Uber at their FROSTT dims and nnz (synthesised
    from a seed), rank 32, through ``plan_for(kernel="cuda")`` and five
    CP-ALS sweeps, each held against the plain ``kernel="torch"`` path on
@@ -30,7 +32,9 @@ Phases, each of which exits non-zero when it fails:
    version's time and the card's bound; for K1 and K2 also their launch
    geometry (waves, resident warps per SM, batch depth), the L2 bytes their
    gathers and updates move, the rate they reach and the share of the
-   updates that the hottest row takes; K1 also on every mode of a stream
+   updates that the hottest row takes; for K4 its launch geometry (CTAs,
+   stages, bytes in flight per SM, the fill) and the HBM rate its bound's
+   bytes reach; K1 also on every mode of a stream
    without hot rows (NELL-2's dims and nnz drawn uniformly), held against
    its plain version; the phases path per mode, phase by phase, beside the
    fused kernel on the same mode;
@@ -289,10 +293,12 @@ def phase_kernels_phase(dev) -> None:
     import torch
     from repro_torch.core import build_blco, random_tensor
     from repro_torch.core.launches import LaunchCache
-    from repro_torch.kernels import (STASH_MAX_BYTES, delinearize,
-                                     mttkrp_segments, mttkrp_stash, ref)
+    from repro_torch.kernels import (STASH_MAX_BYTES, blco_mttkrp,
+                                     delinearize, mttkrp_segments,
+                                     mttkrp_stash, ref)
 
     worst: dict = {}
+    fills = dict(blco_mttkrp.segments_fills)
     pairs = [(torch.float32, torch.float32), (torch.float64, torch.float64),
              (torch.float64, torch.float32)]
     for dims, nnz, tb, mx, rank in KERNEL_CASES:
@@ -320,9 +326,12 @@ def phase_kernels_phase(dev) -> None:
                           for m in range(len(dims)) if m != mode)
                 tgt = coords[:, mode].contiguous()
                 what = f"dims {dims} mode {mode} {vdt}x{fdt}"
-                for tile, n in ((math.gcd(t_all, 256), t_all), (96, ragged),
-                                (1, 64)):
-                    args = (v[:n], tgt[:n], tuple(x[:n] for x in g))
+                # (tile, first slot, end): the last two take the cp.async
+                # fill (63 slots; tensors one slot into their storage)
+                for tile, lo, n in ((math.gcd(t_all, 256), 0, t_all),
+                                    (96, 0, ragged), (1, 0, 64), (1, 0, 63),
+                                    (96, 1, ragged + 1)):
+                    args = (v[lo:n], tgt[lo:n], tuple(x[lo:n] for x in g))
                     seg_tgt, seg_sums = mttkrp_segments(*args, tile=tile)
                     want_tgt, want_sums = ref.mttkrp_segments_ref(*args,
                                                                   tile=tile)
@@ -344,14 +353,19 @@ def phase_kernels_phase(dev) -> None:
                     key = ("stash_phases", str(out.dtype)[6:])
                     worst[key] = max(worst.get(key, 0.0), rel, fro)
         say(f"[kernels] K3/K4/K5 dims {dims} nnz {b.nnz} T {t_all} R {rank}: "
-            f"ok (K4 tiles {math.gcd(t_all, 256)}, 96 over {ragged} slots, "
-            f"1 over 64)")
+            f"ok (K4 tiles {math.gcd(t_all, 256)}, 96 over {ragged} slots "
+            f"from slot 0 and from slot 1, 1 over 64 and over 63)")
     for (kernel, dname), rel in sorted(worst.items()):
         say(f"[kernels] worst rel err (max-rel or Frobenius-rel) {kernel} "
             f"{dname}: {rel:.3e}" + (" (exact)" if kernel == "delinearize"
                                      else ""))
     if {k for k, _ in worst} != set(PHASES):
         raise AssertionError("the kernel phase did not reach K3, K4 and K5")
+    ran = {f: blco_mttkrp.segments_fills[f] - fills[f]
+           for f in blco_mttkrp.FILLS}
+    say(f"[kernels] K4 launches by fill: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"a fill of K4 never ran: {ran}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -687,8 +701,9 @@ def phases_timing(runs, rows) -> None:
     """K3, K4 and K5 on every mode beside their plain versions and bounds,
     and the whole phases path phase by phase beside the fused kernel."""
     import torch
-    from repro_torch.kernels import (cuda_mttkrp_phases, delinearize,
-                                     mttkrp_segments, mttkrp_stash, ref)
+    from repro_torch.kernels import (blco_mttkrp, cuda_mttkrp_phases,
+                                     delinearize, mttkrp_segments,
+                                     mttkrp_stash, ref)
     for run in runs:
         cache = run["plan"].resident.cache
         hi, lo, vals, bases = cache.flat()
@@ -752,6 +767,11 @@ def phases_timing(runs, rows) -> None:
                                          f"differs from its plain version")
                 rel, fro, diff = check_err(f"{name} mode {mode}: K4",
                                            seg_sums, want_sums)
+                geo = blco_mttkrp.segments_geometry(vals, tgt, g, tile=tile)
+                lay = geo.layout
+                if geo.waves != 1:
+                    raise AssertionError(f"{name} mode {mode}: K4 takes "
+                                         f"{geo.waves} waves: {geo}")
                 del want_tgt, want_sums, g
                 scatter_ms = time_ms(lambda: ref.scatter_segments_ref(
                     seg_tgt, seg_sums, d), 20)
@@ -759,6 +779,17 @@ def phases_timing(runs, rows) -> None:
                 lib_note = "no PyTorch call finds per-tile runs"
             b_ms, by = phase_bound(kernel, t, dims, mode, RANK)
             add_row(rows, kernel, ms, plain_ms, b_ms, by, diff)
+            if kernel == "segments":
+                # by == "bytes": the bound's bytes over the kernel's time
+                say(f"[geometry] {name} mode {mode} segments: 1 wave, "
+                    f"{geo.blocks} CTAs x {blco_mttkrp.K4_WARPS} warps, "
+                    f"{geo.blocks_per_sm} resident CTAs per SM, "
+                    f"{lay.stages} stages per warp of "
+                    f"{lay.rows} rows ({lay.stage_bytes} B), "
+                    f"{lay.tasks} tasks of {lay.pieces_per_task} pieces, "
+                    f"{geo.bytes_in_flight_per_sm / 1e3:.1f} KB in flight "
+                    f"per SM, fill {lay.fill}; the bound's bytes at "
+                    f"{b_ms / ms * HBM_BYTES_PER_S / 1e12:.3f} TB/s")
             say(f"[timing] {name} mode {mode} {kernel}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
                 f"{b_ms / ms:.3f} of the bound; max-rel {rel:.3e}, "

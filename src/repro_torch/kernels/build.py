@@ -80,15 +80,20 @@ def _bind_fused(lib: ctypes.CDLL) -> None:
 
 def _bind_phases(lib: ctypes.CDLL) -> None:
     lib.phases_delinearize_launch.argtypes = [
-        _VP, _VP, _VP, _I, ctypes.POINTER(_I), ctypes.POINTER(_I), _LL, _VP,
-        _VP]
+        _VP, _VP, _VP, _I, ctypes.POINTER(_I), ctypes.POINTER(_I), _LL, _I,
+        _VP, _VP]
     lib.phases_delinearize_launch.restype = _I
     lib.phases_segments_launch.argtypes = [
-        _I, _VP, _VP, ctypes.POINTER(_VP), _I, _LL, _I, _I, _VP, _VP, _VP]
+        _I, _VP, _VP, ctypes.POINTER(_VP), _I, _LL, _I, _I, _I, _I, _LL, _I,
+        _I, _VP, _VP, _VP]
     lib.phases_segments_launch.restype = _I
     lib.phases_stash_launch.argtypes = [
-        _I, _VP, _VP, ctypes.POINTER(_VP), _I, _LL, _I, _I, _VP, _VP]
+        _I, _VP, _VP, ctypes.POINTER(_VP), _I, _LL, _I, _I, _I, _VP, _VP]
     lib.phases_stash_launch.restype = _I
+    lib.phases_occupancy.argtypes = [
+        _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+        ctypes.POINTER(_I)]
+    lib.phases_occupancy.restype = _I
     lib.phases_error_string.argtypes = [_I]
     lib.phases_error_string.restype = ctypes.c_char_p
     for name in ("phases_max_order", "phases_max_tile",

@@ -49,6 +49,12 @@ def check_contiguous(*tensors) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
+def device_index(device: torch.device) -> int:
+    """The CUDA ordinal of ``device``; the current one where it names none."""
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
 def raise_on_error(err: int, error_string, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err:

@@ -14,8 +14,9 @@ import ctypes
 import torch
 
 from . import ref
-from .common import (MAX_ORDER, check_contiguous, launch_counts, one_device,
-                     raise_on_error)
+from .blco_mttkrp import phases_occupancy
+from .common import (MAX_ORDER, check_contiguous, device_index,
+                     launch_counts, one_device, raise_on_error)
 
 
 def _check_inputs(hi, lo, bases, field_bits, field_shifts):
@@ -50,6 +51,9 @@ def delinearize(hi, lo, bases, *, field_bits: tuple, field_shifts: tuple):
     coords = torch.empty((t, n), dtype=torch.int32, device=device)
     if t == 0:
         return coords
+    sms = phases_occupancy("delinearize", 0, 0, 0, 0, 0,
+                           device_index(device))[0]
+    blocks = min(-(-t // 256), sms * 16)    # 256 threads, grid-stride
     from .build import load_library
     lib = load_library("phases").lib
     shifts = (ctypes.c_int * n)(*field_shifts)
@@ -57,7 +61,8 @@ def delinearize(hi, lo, bases, *, field_bits: tuple, field_shifts: tuple):
     with torch.cuda.device(device):
         err = lib.phases_delinearize_launch(
             hi.data_ptr(), lo.data_ptr(), bases.data_ptr(), n, shifts, widths,
-            t, coords.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            t, blocks, coords.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     raise_on_error(err, lib.phases_error_string, "delinearize")
     launch_counts["delinearize"] += 1
     return coords

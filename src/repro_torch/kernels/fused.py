@@ -38,8 +38,8 @@ from repro_torch.core.mttkrp import CONTENTION_THRESHOLD, choose_resolution
 
 from . import ref
 from .common import (DTYPE_PAIRS, MAX_ORDER, STASH_MAX_BYTES,
-                     check_contiguous, check_dtype_pair, launch_counts,
-                     one_device, raise_on_error)
+                     check_contiguous, check_dtype_pair, device_index,
+                     launch_counts, one_device, raise_on_error)
 
 # the C side's variant code is the index in VARIANTS: keep the order
 VARIANTS = ("segment", "stash")
@@ -153,11 +153,9 @@ def kernel_geometry(variant: str, vals_dtype, factor_dtype, n_modes: int,
     """The one-wave geometry of a launch of ``variant`` on ``device``."""
     out_dtype = torch.promote_types(vals_dtype, factor_dtype)
     smem = out_rows * rank * out_dtype.itemsize if variant == "stash" else 0
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
     sms, per_sm, batch, threads = _occupancy(
         variant, DTYPE_PAIRS[(vals_dtype, factor_dtype)], n_modes, smem,
-        index)
+        device_index(device))
     blocks, chunk = launch_geometry(t, sms, per_sm, threads)
     return Geometry(blocks, chunk, threads, sms, per_sm, batch)
 

@@ -281,3 +281,115 @@ def test_phase_kernels_refuse_unsupported_inputs(cuda):
         delinearize(hi, hi, torch.zeros(256, 1, dtype=torch.int32,
                                         device=cuda),
                     field_bits=(8,), field_shifts=(0,))
+
+
+def _segments_case(dims, nnz, tb, mx, rank, pair, cuda):
+    """K4's inputs for every mode of one tensor: (vals, tgt, gathered)."""
+    vdt, fdt = pair
+    t = core.random_tensor(dims, nnz, seed=7, dist="powerlaw")
+    b = core.build_blco(t, target_bits=tb, max_nnz_per_block=mx)
+    hi, lo, vals, bases = LaunchCache.from_blco(b, device=cuda).flat()
+    coords = ref.delinearize_ref(hi, lo, bases, field_bits=b.re.field_bits,
+                                 field_shifts=b.re.field_shift)
+    rng = np.random.default_rng(0)
+    fs = [torch.as_tensor(rng.standard_normal((d, rank))).to(cuda, fdt)
+          for d in dims]
+    for mode in range(len(dims)):
+        yield (vals.to(vdt), coords[:, mode].contiguous(),
+               tuple(fs[m].index_select(0, coords[:, m])
+                     for m in range(len(dims)) if m != mode))
+
+
+def _check_segments(args, tile, **kw):
+    seg_tgt, seg_sums = blco_mttkrp._launch_segments(*args, tile=tile, **kw)
+    want_tgt, want_sums = ref.mttkrp_segments_ref(*args, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(seg_tgt, want_tgt), (tile, kw)
+    assert _rel(seg_sums, want_sums) < REL_TOL[seg_sums.dtype], (tile, kw)
+    d = (seg_sums - want_sums).double()
+    fro = float(d.norm() / want_sums.double().norm().clamp_min(1e-30))
+    assert fro < REL_TOL[seg_sums.dtype], (tile, kw)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=["f32", "f64", "f64xf32"])
+@pytest.mark.parametrize("dims,nnz,tb,mx,rank", CASES)
+def test_segments_both_fills_match_plain_versions(cuda, dims, nnz, tb, mx,
+                                                  rank, pair):
+    """K4 through its bulk-copy fill (aligned spans) and its cp.async fill
+    (a stream of 63 slots at tile 1; tensors that start one slot into
+    their storage), each against the plain version, max-rel and
+    Frobenius-rel."""
+    before = dict(blco_mttkrp.segments_fills)
+    for vals, tgt, g in _segments_case(dims, nnz, tb, mx, rank, pair, cuda):
+        n = tgt.shape[0]
+        ragged = (n // 96) * 96 - 96
+        for tile, lo, hi in ((math.gcd(n, 256), 0, n), (96, 0, ragged),
+                             (1, 0, 63), (96, 1, ragged + 1),
+                             (math.gcd(n - 1, 256), 1, n)):
+            args = (vals[lo:hi], tgt[lo:hi], tuple(x[lo:hi] for x in g))
+            geo = blco_mttkrp.segments_geometry(*args, tile=tile)
+            assert geo.waves == 1, geo
+            assert geo.layout.bulk == (lo == 0 and (hi - lo) % 4 == 0), geo
+            _check_segments(args, tile)
+    ran = {f: blco_mttkrp.segments_fills[f] - before[f]
+           for f in blco_mttkrp.FILLS}
+    assert all(ran.values()), ran
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=["f32", "f64", "f64xf32"])
+def test_segments_pinned_grids_wrap_the_ring(cuda, pair):
+    """One CTA (each warp walks hundreds of pieces, its ring wraps many
+    times), two CTAs, and more CTAs than tasks; a target mode of 1 row, so
+    every tile is one run longer than a stage."""
+    case = ((1, 2, 300, 200), 3000, 64, 1 << 27, 40)
+    for mode, args in enumerate(_segments_case(*case, pair, cuda)):
+        if mode > 1:
+            break
+        n = args[1].shape[0]
+        for tile in (256, 96, 1):
+            m = n // tile * tile
+            cut = (args[0][:m], args[1][:m], tuple(x[:m] for x in args[2]))
+            tasks = blco_mttkrp.segments_geometry(*cut,
+                                                  tile=tile).layout.tasks
+            for blocks in (1, 2, tasks + 5):
+                _check_segments(cut, tile, blocks=blocks)
+
+
+def test_segments_are_deterministic(cuda):
+    """Two calls on the same inputs give the same bits: each run is summed
+    by one lane per column in stream order, without atomics."""
+    case = ((70, 40, 30), 1777, 12, 512, 32)
+    for vals, tgt, g in _segments_case(*case, PAIRS[0], cuda):
+        for tile in (256, 1):
+            n = tgt.shape[0] // tile * tile
+            args = (vals[:n], tgt[:n], tuple(x[:n] for x in g))
+            a_tgt, a_sums = blco_mttkrp.mttkrp_segments(*args, tile=tile)
+            b_tgt, b_sums = blco_mttkrp.mttkrp_segments(*args, tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(a_tgt, b_tgt)
+            assert torch.equal(a_sums.view(torch.int32),
+                               b_sums.view(torch.int32))
+
+
+def test_segments_refused_shape_raises_without_the_plain_version(
+        cuda, monkeypatch):
+    """A rank whose stage of one slot would not fit shared memory raises on
+    the card; the plain version is never run in its place.  The occupancy
+    of a kernel instance is asked once."""
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran for CUDA tensors")
+    monkeypatch.setattr(ref, "mttkrp_segments_ref", no_plain)
+    t = 256
+    vals = torch.ones(t, dtype=torch.float64, device=cuda)
+    tgt = torch.zeros(t, dtype=torch.int32, device=cuda)
+    rows = tuple(torch.ones(t, 512, dtype=torch.float64, device=cuda)
+                 for _ in range(7))
+    before = dict(common.launch_counts)
+    with pytest.raises(ValueError):
+        blco_mttkrp.mttkrp_segments(vals, tgt, rows, tile=256)
+    assert common.launch_counts == before
+    blco_mttkrp.phases_occupancy.cache_clear()
+    for _ in range(3):
+        blco_mttkrp.mttkrp_segments(vals, tgt, rows[:2], tile=256)
+    assert blco_mttkrp.phases_occupancy.cache_info().misses == 1
+    assert common.launch_counts["segments"] == before["segments"] + 3
