@@ -28,6 +28,14 @@ Phases, each of which exits non-zero when it fails:
    ``cuda_mttkrp_phases`` (K3, gather, K4 + scatter or K5), held against
    the fused and the plain outputs.  The launch counters are zeroed just
    before each of the two paths and read just after it;
+[stream] the out-of-memory regime: each tensor rebuilt with smaller blocks
+   (NELL-2 in 5 chunks, Uber in 7), planned by ``plan_for(backend="auto")``
+   under a device budget that the streamed regime fits and the in-memory
+   regime does not, so it streams through a ring of pinned buffers and one
+   K1/K2 launch per chunk; every mode held against the in-memory fused
+   output, five CP-ALS sweeps held against the in-memory fits, and the
+   streamed path's K1/K2 launches counted (zeroed just before, read just
+   after) and checked against chunks x calls;
 4. timing: each kernel and mode with CUDA events, beside the plain
    version's time and the card's bound; for K1 and K2 also their launch
    geometry (waves, resident warps per SM, batch depth), the L2 bytes their
@@ -37,7 +45,12 @@ Phases, each of which exits non-zero when it fails:
    bytes reach; K1 also on every mode of a stream
    without hot rows (NELL-2's dims and nnz drawn uniformly), held against
    its plain version; the phases path per mode, phase by phase, beside the
-   fused kernel on the same mode;
+   fused kernel on the same mode; the streamed regime: pinned and pageable
+   host-to-device GB/s, each mode's streamed time beside the host fill per
+   chunk, the copy floor and K1's in-memory time, NELL-2 mode 0 at 1, 2, 4
+   and 8 queues, and a ``torch.profiler`` split of one fused and one
+   streamed CP-ALS sweep per tensor (K1/K2, the other kernels, the copies
+   and the device's idle time);
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -89,6 +102,17 @@ REL_TOL = {"float32": 5e-4, "float64": 1e-10}
 # per-sweep CP-ALS fit, fused kernel vs plain path, both on the card in f32:
 # the pseudo-inverse amplifies the reordered additions of the atomics
 FIT_TOL = 1e-3
+# [stream]: max_nnz_per_block of the rebuild (one launch per block, so
+# NELL-2 streams in 5 chunks and Uber in 7) and the device budget, which
+# lies between the streamed need (queues x reservation + factors) and the
+# in-memory need, so plan_for(backend="auto") must pick the streamed regime
+STREAM = {"nell-2": (1 << 24, 1.8e9), "uber": (1 << 19, 80e6)}
+QUEUES = 4
+QUEUE_SWEEP = (1, 2, 4, 8)
+# the profiler's annotation around one CP-ALS sweep
+SWEEP_MARK = "cp_als_sweep"
+# one NELL-2 chunk (2^24 slots x 24 B): the buffer of the H2D rate probe
+H2D_PROBE_BYTES = (1 << 24) * 24
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_mttkrp.cu"
 PHASES_SOURCE = "src/repro_torch/kernels/csrc/phases.cu"
 # launch-counter name -> (name in the JSON line, source, TPU kernel)
@@ -407,6 +431,11 @@ def run_tensor(name, dims, nnz, dev) -> dict:
     b = build_blco(t)
     build_s = time.perf_counter() - t0
     norm_x = float(np.sqrt(np.sum(t.values.astype(np.float64) ** 2)))
+    t0 = time.perf_counter()
+    bs = build_blco(t, max_nnz_per_block=STREAM[name][0])
+    say(f"[stream] {name}: build_blco(max_nnz_per_block="
+        f"{STREAM[name][0]}) {time.perf_counter() - t0:.1f} s, launches "
+        f"{[l.nnz for l in bs.launches]}")
     del t
     say(f"[main] {name}: dims {dims} nnz {b.nnz}, of which the powerlaw "
         f"head {head_nnz} ({head_nnz / b.nnz:.4f}) and the uniform top-up "
@@ -476,7 +505,8 @@ def run_tensor(name, dims, nnz, dev) -> dict:
     say(f"[main] {name}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return {"name": name, "plan": plan, "blco": b, "dims": dims,
-            "nnz": b.nnz, "modes": modes, "outs": outs, "factors": factors}
+            "nnz": b.nnz, "modes": modes, "outs": outs, "factors": factors,
+            "stream_blco": bs, "norm_x": norm_x, "fits": fits["cuda"]}
 
 
 def phases_path(run) -> None:
@@ -517,6 +547,70 @@ def phases_path(run) -> None:
     say(f"[phases] {run['name']}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (cache "
         f"{cache.device_bytes() / 1e9:.3f} GB)")
+
+
+# -------------------------------------------------------------- [stream]
+def stream_path(run, dev) -> dict:
+    """One tensor's streamed regime, rebuilt with smaller blocks: picked by
+    ``plan_for(backend="auto")`` under a budget the in-memory regime does
+    not fit, every mode held against the in-memory fused output, and
+    ``SWEEPS`` CP-ALS sweeps held against the in-memory fits.  Returns the
+    K1/K2 launches the path should have made, per variant."""
+    import torch
+    from repro_torch.core import cp_als_init, cp_als_step
+    from repro_torch.engine import factor_bytes, in_memory_bytes, plan_for
+    name, dims, fs = run["name"], run["dims"], run["factors"]
+    bs = run["stream_blco"]
+    budget = STREAM[name][1]
+    plan = plan_for(bs, budget, rank=RANK, backend="auto", queues=QUEUES,
+                    kernel="cuda", device=dev)
+    if plan.backend != "streamed":
+        raise AssertionError(f"{name}: plan_for picked {plan.backend} under "
+                             f"a budget of {budget:.0f} B")
+    run["stream_plan"] = plan
+    chunks = len(bs.launches)
+    spec = plan.spec
+    working = factor_bytes(dims, RANK, torch.float32)
+    say(f"[stream] {name}: plan_for(auto, budget {budget:.0f} B) -> "
+        f"{plan.backend}; {chunks} launches {[l.nnz for l in bs.launches]}, "
+        f"reservation {spec.nnz}, {spec.bytes_per_launch} B per launch, "
+        f"H2D per mode {chunks * spec.bytes_per_launch / 1e9:.4f} GB, in "
+        f"flight at queues={QUEUES} {plan.device_bytes() / 1e9:.4f} GB "
+        f"(+ factors {working / 1e6:.2f} MB = "
+        f"{(plan.device_bytes() + working) / 1e9:.4f} GB), in memory "
+        f"{in_memory_bytes(bs) / 1e9:.4f} GB (+ factors = "
+        f"{(in_memory_bytes(bs) + working) / 1e9:.4f} GB), host window "
+        f"{plan.host_window_bytes() / 1e9:.4f} GB")
+    calls = {v: 0 for v in FUSED}
+    for (mode, d, variant, _), (fused_out, _) in zip(run["modes"],
+                                                     run["outs"]):
+        t0 = time.perf_counter()
+        out = plan.mttkrp(fs, mode)
+        secs = time.perf_counter() - t0
+        calls[variant] += 1 + SWEEPS
+        if out.shape != (d, RANK) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} mode {mode}: bad streamed output")
+        rel, fro, diff = check_err(f"{name} mode {mode}: streamed vs "
+                                   f"in-memory fused", out, fused_out)
+        say(f"[stream] {name} mode {mode} -> {variant} x {chunks} chunks in "
+            f"{secs:.3f} s (first call): vs in-memory fused max-rel "
+            f"{rel:.3e}, Frobenius-rel {fro:.3e} (max abs {diff:.3e})")
+    state = cp_als_init(dims, RANK, norm_x=run["norm_x"], tol=0.0, seed=SEED,
+                        device=dev)
+    for sweep in range(SWEEPS):
+        t0 = time.perf_counter()
+        cp_als_step(plan, state)
+        torch.cuda.synchronize()
+        say(f"[stream] {name} cp_als streamed sweep {sweep}: "
+            f"{time.perf_counter() - t0:.4f} s, fit {state.fits[-1]:.6f}")
+    diffs = [abs(a - c) for a, c in zip(state.fits, run["fits"])]
+    if not all(math.isfinite(f) for f in state.fits) or max(diffs) > FIT_TOL:
+        raise AssertionError(f"{name}: streamed fits {state.fits} disagree "
+                             f"with in-memory fits {run['fits']}")
+    say(f"[stream] {name}: streamed fits {state.fits} (max diff from the "
+        f"in-memory fits {max(diffs):.2e})")
+    say(f"[stream] {name}: EngineStats {json.dumps(plan.stats().snapshot())}")
+    return {v: chunks * c for v, c in calls.items()}
 
 
 # --------------------------------------------------------------- phase 4
@@ -805,6 +899,182 @@ def phases_timing(runs, rows) -> None:
             torch.cuda.empty_cache()
 
 
+def h2d_rates(dev) -> dict:
+    """Pinned and pageable host-to-device GB/s: one copy of
+    ``H2D_PROBE_BYTES`` timed by CUDA events, median of 10 after 2."""
+    import statistics
+
+    import torch
+    dst = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    rates = {}
+    for label, pinned in (("pinned", True), ("pageable", False)):
+        src = torch.ones(H2D_PROBE_BYTES, dtype=torch.uint8,
+                         pin_memory=pinned)
+        for _ in range(2):
+            dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        rates[label] = H2D_PROBE_BYTES / statistics.median(ms) / 1e6
+        del src
+    say(f"[stream] H2D of {H2D_PROBE_BYTES} B, median of 10 by CUDA events: "
+        f"pinned {rates['pinned']:.3f} GB/s, pageable "
+        f"{rates['pageable']:.3f} GB/s")
+    return rates
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``reps`` calls, each ended by a synchronize,
+    after one warm-up call, by the host clock."""
+    import statistics
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts) * 1e3
+
+
+def stream_timing(runs, rates, dev) -> None:
+    """Each mode's streamed call beside its parts: the host fill per chunk
+    (``chunk_into`` alone), the copy floor at the pinned rate, and K1/K2's
+    in-memory time (the paper's Fig. 10 comparison); then NELL-2 mode 0 at
+    each queue depth of ``QUEUE_SWEEP``."""
+    from repro_torch.engine import StreamedPlan
+    for run in runs:
+        plan, name = run["stream_plan"], run["name"]
+        chunks = len(run["stream_blco"].launches)
+        per_call = chunks * plan.spec.bytes_per_launch
+        floor_ms = per_call / rates["pinned"] / 1e6
+        for mode, _, variant, _ in run["modes"]:
+            put0 = plan.stats().put_time_s
+            calls0 = plan.stats().mttkrp_calls
+            ms = host_ms(lambda: plan.mttkrp(run["factors"], mode))
+            put = (plan.stats().put_time_s - put0) / (
+                plan.stats().mttkrp_calls - calls0) / chunks * 1e3
+            bufs = plan.buffers.host_set(0)
+            fill_ms = host_ms(lambda: [plan.chunks.chunk_into(i, bufs)
+                                       for i in range(chunks)]) / chunks
+            mem_ms = run["fused_ms"][mode]
+            say(f"[stream] {name} mode {mode} {variant}: streamed "
+                f"{ms:.3f} ms per call (median of 5, queues={plan.queues}, "
+                f"{chunks} chunks); fill {fill_ms:.3f} ms per chunk "
+                f"(chunk_into alone; fill + issue + waits in the loop "
+                f"{put:.3f} ms); H2D floor {per_call / 1e9:.4f} GB / "
+                f"{rates['pinned']:.3f} GB/s = {floor_ms:.3f} ms; in-memory "
+                f"{variant} {mem_ms:.4f} ms; streamed / in-memory "
+                f"{ms / mem_ms:.2f}; streamed / H2D floor "
+                f"{ms / floor_ms:.2f}")
+    run = runs[0]
+    sweep = []
+    for q in QUEUE_SWEEP:
+        p = StreamedPlan(run["stream_blco"], queues=q, kernel="cuda",
+                         device=dev)
+        sweep.append(f"queues={q} "
+                     f"{host_ms(lambda: p.mttkrp(run['factors'], 0)):.3f} ms")
+        p.close()
+    say(f"[stream] {run['name']} mode 0 queue sweep (median of 5): "
+        + ", ".join(sweep))
+
+
+def device_split(prof, window) -> dict:
+    """Device milliseconds of a profiled sweep by kind, and the time in the
+    sweep's host span ``window`` (µs) when the device ran nothing.  The
+    profiler also puts synchronisations (stream waits, event and context
+    syncs) and the sweep's own annotation on the device's rows; they are
+    not work, and not counted."""
+    from torch.autograd import DeviceType
+    kinds = {"K1/K2": 0.0, "other kernels": 0.0, "H2D copies": 0.0,
+             "other copies": 0.0}
+    others: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.name == SWEEP_MARK or "Sync" in e.name \
+                or "Wait" in e.name:
+            continue
+        a, z = e.time_range.start, e.time_range.end
+        spans.append((a, z))
+        if "segment_kernel" in e.name or "stash_kernel" in e.name:
+            kinds["K1/K2"] += z - a
+        elif "HtoD" in e.name:
+            kinds["H2D copies"] += z - a
+        elif "Memcpy" in e.name or "Memset" in e.name:
+            kinds["other copies"] += z - a
+        else:
+            kinds["other kernels"] += z - a
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + z - a
+    busy, end = 0.0, window[0]
+    for a, z in sorted(spans):
+        a, z = max(a, end), min(z, window[1])
+        if z > a:
+            busy += z - a
+            end = z
+    out = {k: v / 1e3 for k, v in kinds.items()}
+    out["device busy"] = busy / 1e3
+    out["device idle"] = (window[1] - window[0] - busy) / 1e3
+    out["events"] = len(spans)
+    out["top other kernels"] = sorted(others.items(),
+                                      key=lambda kv: -kv[1])[:4]
+    return out
+
+
+def profile_sweeps(runs, dev) -> None:
+    """One fused and one streamed CP-ALS sweep per tensor under
+    ``torch.profiler``: device time of K1/K2, of the other kernels (the
+    dense (R, R) steps, output zeroing, the accumulation of chunks), of
+    the copies, and the device's idle time in the sweep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import cp_als_init, cp_als_step
+    for run in runs:
+        for label, plan in (("fused", run["plan"]),
+                            ("streamed", run["stream_plan"])):
+            state = cp_als_init(run["dims"], RANK, norm_x=run["norm_x"],
+                                tol=0.0, seed=SEED, device=dev)
+            cp_als_step(plan, state)                    # warm-up sweep
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with record_function(SWEEP_MARK):
+                    cp_als_step(plan, state)
+                    torch.cuda.synchronize()
+                sweep_ms = (time.perf_counter() - t0) * 1e3
+            marks = [e.time_range for e in prof.events()
+                     if e.name == SWEEP_MARK
+                     and e.device_type == DeviceType.CPU]
+            split = device_split(prof, (marks[0].start, marks[0].end)) \
+                if marks else {"events": 0}
+            if not split["events"]:
+                say(f"[profile] {run['name']} {label} sweep: {sweep_ms:.3f} "
+                    f"ms; the profiler recorded no device events, so the "
+                    f"split is not measured")
+                continue
+            top = "; ".join(f"{n} {us / 1e3:.3f}"
+                            for n, us in split.pop("top other kernels"))
+            say(f"[profile] {run['name']} {label} sweep: {sweep_ms:.3f} ms "
+                f"by the host clock under the profiler; device ms: " +
+                ", ".join(f"{k} {v:.3f}" for k, v in split.items()
+                          if k != "events") +
+                f" ({split['events']} device events; the other kernels' "
+                f"largest: {top})")
+
+
 # --------------------------------------------------------------- phase 5
 def dispatch_phase(dev) -> None:
     """µs and dispatches per mode-0 call of four paths over the five
@@ -912,9 +1182,25 @@ def main() -> int:
                              f"{phase_launches}")
     launches.update({k: phase_launches[k] for k in PHASES})
 
+    reset_launch_counts()
+    want = {v: 0 for v in FUSED}
+    for run in runs:
+        for v, n in stream_path(run, dev).items():
+            want[v] += n
+    stream_launches = dict(launch_counts)
+    say(f"[stream] kernel launches on the streamed path: {stream_launches} "
+        f"(chunks x calls: {want})")
+    if stream_launches != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"the streamed path launched "
+                             f"{stream_launches}, expected {want}")
+    for v in FUSED:
+        launches[v] += stream_launches[v]
+
     rows = timing_phase(runs)
     uniform_timing(dev)
     phases_timing(runs, rows)
+    stream_timing(runs, h2d_rates(dev), dev)
+    profile_sweeps(runs, dev)
     dispatch_phase(dev)
     entries = []
     for kernel, (name, source, replaces) in KERNELS.items():

@@ -1,5 +1,6 @@
 """Core library of the PyTorch port: BLCO format, mode-agnostic MTTKRP,
-launch cache and CP-ALS (the in-memory regime of the paper)."""
+launch cache, CP-ALS and out-of-memory streaming (the paper's in-memory
+and out-of-memory regimes)."""
 from .tensor import (SparseTensor, from_coo, load_tns, paper_like,
                      random_tensor, top_up_uniform)
 from .blco import BLCOTensor, build_blco, decode_coords, format_bytes
@@ -11,7 +12,9 @@ from .launches import LaunchCache, launch_cache_bytes, stacked_mttkrp
 from .counters import dispatch_count
 from .cp_als import (CPResult, CPState, as_mttkrp_fn, cp_als, cp_als_init,
                      cp_als_step, init_factors, reconstruct_dense)
-from .streaming import EngineStats, LaunchChunks, ReservationSpec
+from .streaming import (EngineStats, LaunchChunks, OOMExecutor,
+                        ReservationSpec, StreamBuffers, StreamStats,
+                        reservation_for, stream_mttkrp)
 
 __all__ = [
     "SparseTensor", "random_tensor", "top_up_uniform", "from_coo",
@@ -24,5 +27,6 @@ __all__ = [
     "LaunchCache", "launch_cache_bytes", "stacked_mttkrp", "dispatch_count",
     "CPResult", "CPState", "as_mttkrp_fn", "cp_als", "cp_als_init",
     "cp_als_step", "init_factors", "reconstruct_dense",
-    "EngineStats", "LaunchChunks", "ReservationSpec",
+    "EngineStats", "LaunchChunks", "OOMExecutor", "ReservationSpec",
+    "StreamBuffers", "StreamStats", "reservation_for", "stream_mttkrp",
 ]

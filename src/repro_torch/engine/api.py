@@ -5,11 +5,12 @@ The port of ``repro.engine.api``.  Every way to execute an MTTKRP is an
 
     plan.mttkrp(factors, mode)   -> (I_mode, R) result
     plan.device_bytes()          -> exact bytes the plan holds resident
-                                    (hi + lo + vals + bases, padded)
+                                    (hi + lo + vals + bases, padded; the
+                                    reservations in flight when streamed)
     plan.stats()                 -> unified EngineStats
     plan.close()                 -> release device buffers; returns bytes freed
 
-The port has one backend so far, ``InMemoryPlan``.
+The port has two backends so far, ``InMemoryPlan`` and ``StreamedPlan``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.core.streaming import EngineStats
 class ExecutionPlan(Protocol):
     """A concrete, introspectable way to execute MTTKRPs for one tensor."""
 
-    backend: str          # "in_memory" (the only port backend so far)
+    backend: str          # "in_memory" or "streamed"
 
     def mttkrp(self, factors, mode: int):
         """Mode-``mode`` MTTKRP of the planned tensor with ``factors``."""

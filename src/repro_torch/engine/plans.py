@@ -1,11 +1,14 @@
-"""The port's ExecutionPlan backends: ``InMemoryPlan`` so far.
+"""The port's ExecutionPlan backends.
 
   InMemoryPlan   device-resident BLCO (absorbs ``core.mttkrp.DeviceBLCO``):
                  the paper's in-memory regime — one upload, then every
                  MTTKRP with ``kernel="cuda"`` is exactly one kernel launch.
+  StreamedPlan   host-resident BLCO streamed through a ring of fixed
+                 reservations (the paper's out-of-memory regime): one
+                 K1/K2 launch per chunk with ``kernel="cuda"``.
 
-The streamed, sharded and baseline plans of ``repro.engine.plans`` are
-later slices of the port (ROADMAP.md, queue 1).
+The sharded and baseline plans of ``repro.engine.plans`` are later slices
+of the port (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from repro_torch.core.blco import BLCOTensor
 from repro_torch.core.counters import dispatch_count
 from repro_torch.core.device import DEFAULT_DEVICE
 from repro_torch.core.mttkrp import DEFAULT_COPIES, DeviceBLCO, validate_kernel
-from repro_torch.core.streaming import EngineStats
+from repro_torch.core.streaming import (EngineStats, LaunchChunks,
+                                        ReservationSpec, StreamBuffers,
+                                        reservation_for, stream_mttkrp)
 
 
 class InMemoryPlan:
@@ -97,4 +102,70 @@ class InMemoryPlan:
         return freed
 
 
-__all__ = ["InMemoryPlan"]
+class StreamedPlan:
+    """Out-of-memory plan: host-resident tensor, fixed device reservations.
+
+    The plan owns its ring (``buffers``): ``queues`` host and ``queues``
+    device buffer sets of one reservation each, allocated once here and
+    reused by every call.  ``chunks`` is the chunk source, by default the
+    tensor's ``LaunchChunks``, which pads one launch at a time into the
+    ring's host buffers.
+    """
+
+    backend = "streamed"
+
+    def __init__(self, blco: BLCOTensor, *, queues: int = 4,
+                 reservation_nnz: int | None = None,
+                 spec: ReservationSpec | None = None, chunks=None,
+                 resolution: str = "auto", copies: int = DEFAULT_COPIES,
+                 kernel: str = "cuda", device=DEFAULT_DEVICE):
+        validate_kernel(kernel)
+        self.blco = blco
+        self.dims = blco.dims
+        self.queues = queues
+        self.resolution = resolution
+        self.copies = copies
+        self.kernel = kernel
+        self.spec = spec if spec is not None \
+            else reservation_for(blco, reservation_nnz)
+        self.chunks = chunks if chunks is not None \
+            else LaunchChunks(blco, self.spec.nnz)
+        self.buffers: StreamBuffers | None = StreamBuffers(
+            self.spec, queues, blco.values.dtype, device=device)
+        self._stats = EngineStats(backend=self.backend)
+
+    def mttkrp(self, factors, mode: int, *, resolution: str | None = None,
+               copies: int | None = None):
+        if self.buffers is None:
+            raise RuntimeError("plan is closed")
+        return stream_mttkrp(
+            self.chunks, self.blco, factors, mode, queues=self.queues,
+            resolution=resolution if resolution is not None
+            else self.resolution,
+            copies=copies if copies is not None else self.copies,
+            stats=self._stats, kernel=self.kernel, buffers=self.buffers)
+
+    def device_bytes(self) -> int:
+        """Reservation bytes in flight (the only device-resident state)."""
+        return 0 if self.buffers is None \
+            else self.spec.bytes_in_flight(self.queues)
+
+    def host_window_bytes(self) -> int:
+        """Padded host bytes the streaming loop holds at once: one
+        reservation per queue, never the whole tensor's launches."""
+        return 0 if self.buffers is None \
+            else self.spec.bytes_per_launch * self.queues
+
+    def stats(self) -> EngineStats:
+        return self._stats
+
+    def close(self) -> int:
+        if self.buffers is None:
+            return 0
+        freed = self.buffers.close()
+        self.buffers = None
+        self.chunks = None
+        return freed
+
+
+__all__ = ["InMemoryPlan", "StreamedPlan"]

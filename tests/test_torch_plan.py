@@ -106,7 +106,7 @@ def test_unported_and_unknown_backends_raise():
         plan_for(port, BUDGET, rank=6, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
         plan_for(port, BUDGET, rank=6, kernel="pallas", device="cpu")
-    with pytest.raises(ValueError, match="streamed"):
+    with pytest.raises(ValueError, match="no regime fits"):
         plan_for(port, 1000, rank=6, device="cpu")
     plan = plan_for(port, BUDGET, rank=6, backend="in_memory", device="cpu")
     assert plan.backend == "in_memory"
