@@ -36,6 +36,18 @@ Phases, each of which exits non-zero when it fails:
    output, five CP-ALS sweeps held against the in-memory fits, and the
    streamed path's K1/K2 launches counted (zeroed just before, read just
    after) and checked against chunks x calls;
+[disk] the disk tier, on [stream]'s rebuilt tensors: ``plan_for(auto)``
+   under a host budget below the tensor's host bytes (and above the ring's
+   host window) spills each to a ``.blco`` store under ``build/disk/`` and
+   streams it from the file through the ring, one K1/K2 launch per chunk;
+   every mode held against the in-memory fused output, five CP-ALS sweeps
+   against the in-memory fits; then, with Uber, the degradation ladder:
+   injected ``plan.alloc`` faults (one, then two) demote to the streamed
+   and the disk tier, and a genuine ``torch.cuda.OutOfMemoryError`` (the
+   caching allocator capped below the in-memory need) demotes to the
+   streamed tier; each demoted plan computes mode 0 within tolerance.  The
+   K1/K2 launches of the phase are counted and checked against chunks x
+   calls;
 4. timing: each kernel and mode with CUDA events, beside the plain
    version's time and the card's bound; for K1 and K2 also their launch
    geometry (waves, resident warps per SM, batch depth), the L2 bytes their
@@ -48,9 +60,14 @@ Phases, each of which exits non-zero when it fails:
    fused kernel on the same mode; the streamed regime: pinned and pageable
    host-to-device GB/s, each mode's streamed time beside the host fill per
    chunk, the copy floor and K1's in-memory time, NELL-2 mode 0 at 1, 2, 4
-   and 8 queues, and a ``torch.profiler`` split of one fused and one
-   streamed CP-ALS sweep per tensor (K1/K2, the other kernels, the copies
-   and the device's idle time);
+   and 8 queues; the disk tier: each mode's disk-streamed time beside the
+   host-streamed one, the read of a chunk from the store by both routes
+   (the store's memmap copy into the pinned ring, ``os.preadv`` into it)
+   beside the host fill, and one cold call by each route after the file's
+   pages are dropped; and a
+   ``torch.profiler`` split of one fused and one streamed CP-ALS sweep per
+   tensor (K1/K2, the other kernels, the copies and the device's idle
+   time);
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -67,6 +84,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -109,6 +127,11 @@ FIT_TOL = 1e-3
 STREAM = {"nell-2": (1 << 24, 1.8e9), "uber": (1 << 19, 80e6)}
 QUEUES = 4
 QUEUE_SWEEP = (1, 2, 4, 8)
+# [disk]: where the stores are written (build/ is not committed)
+STORE_DIR = os.path.join(ROOT, "build", "disk")
+# the ladder's tensor (the one whose in-memory need is small enough to
+# cap the allocator below it)
+LADDER = "uber"
 # the profiler's annotation around one CP-ALS sweep
 SWEEP_MARK = "cp_als_sweep"
 # one NELL-2 chunk (2^24 slots x 24 B): the buffer of the H2D rate probe
@@ -613,6 +636,138 @@ def stream_path(run, dev) -> dict:
     return {v: chunks * c for v, c in calls.items()}
 
 
+# ---------------------------------------------------------------- [disk]
+def disk_path(run, dev) -> dict:
+    """One tensor's disk tier on [stream]'s rebuilt BLCO: ``plan_for(auto)``
+    under a host budget below the tensor's host bytes spills it to a store
+    and streams it from the file; every mode held against the in-memory
+    fused output and ``SWEEPS`` CP-ALS sweeps against the in-memory fits.
+    Returns the K1/K2 launches the path should have made, per variant."""
+    import torch
+    from repro_torch.core import cp_als_init, cp_als_step, format_bytes
+    from repro_torch.core.streaming import reservation_for
+    from repro_torch.engine import plan_for
+    name, dims, fs = run["name"], run["dims"], run["factors"]
+    bs = run["stream_blco"]
+    os.makedirs(STORE_DIR, exist_ok=True)
+    usage = shutil.disk_usage(STORE_DIR)
+    window = QUEUES * reservation_for(bs).bytes_per_launch
+    host_budget = (format_bytes(bs) + window) // 2
+    path = os.path.join(STORE_DIR, f"{name}.blco")
+    say(f"[disk] {name}: {STORE_DIR} has {usage.free / 1e9:.1f} GB free of "
+        f"{usage.total / 1e9:.1f} GB; host budget {host_budget} B (tensor "
+        f"{format_bytes(bs)} B, ring's host window {window} B)")
+    t0 = time.perf_counter()
+    plan = plan_for(bs, STREAM[name][1], rank=RANK, backend="auto",
+                    queues=QUEUES, kernel="cuda", device=dev,
+                    host_budget_bytes=host_budget, store_path=path)
+    spill_s = time.perf_counter() - t0
+    if plan.backend != "disk_streamed":
+        raise AssertionError(f"{name}: plan_for picked {plan.backend} under "
+                             f"a host budget of {host_budget} B")
+    t0 = time.perf_counter()
+    plan.stored.verify()
+    verify_s = time.perf_counter() - t0
+    run["disk_plan"] = plan
+    chunks = plan.stored.num_launches
+    say(f"[disk] {name}: plan_for(auto, host budget) -> {plan.backend} in "
+        f"{spill_s:.2f} s (save_blco of {plan.disk_bytes()} B, open, ring); "
+        f"verify() {verify_s:.2f} s; {chunks} chunks of "
+        f"{plan.spec.bytes_per_launch} B, host window "
+        f"{plan.host_window_bytes()} B, device bytes {plan.device_bytes()} B")
+    calls = {v: 0 for v in FUSED}
+    for (mode, d, variant, _), (fused_out, _) in zip(run["modes"],
+                                                     run["outs"]):
+        t0 = time.perf_counter()
+        out = plan.mttkrp(fs, mode)
+        secs = time.perf_counter() - t0
+        calls[variant] += 1 + SWEEPS
+        if out.shape != (d, RANK) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} mode {mode}: bad disk output")
+        rel, fro, diff = check_err(f"{name} mode {mode}: disk-streamed vs "
+                                   f"in-memory fused", out, fused_out)
+        say(f"[disk] {name} mode {mode} -> {variant} x {chunks} chunks in "
+            f"{secs:.3f} s (first call): vs in-memory fused max-rel "
+            f"{rel:.3e}, Frobenius-rel {fro:.3e} (max abs {diff:.3e})")
+    state = cp_als_init(dims, RANK, norm_x=run["norm_x"], tol=0.0, seed=SEED,
+                        device=dev)
+    for sweep in range(SWEEPS):
+        t0 = time.perf_counter()
+        cp_als_step(plan, state)
+        torch.cuda.synchronize()
+        say(f"[disk] {name} cp_als disk-streamed sweep {sweep}: "
+            f"{time.perf_counter() - t0:.4f} s, fit {state.fits[-1]:.6f}")
+    diffs = [abs(a - c) for a, c in zip(state.fits, run["fits"])]
+    if not all(math.isfinite(f) for f in state.fits) or max(diffs) > FIT_TOL:
+        raise AssertionError(f"{name}: disk-streamed fits {state.fits} "
+                             f"disagree with in-memory fits {run['fits']}")
+    say(f"[disk] {name}: disk-streamed fits {state.fits} (max diff from the "
+        f"in-memory fits {max(diffs):.2e})")
+    say(f"[disk] {name}: EngineStats {json.dumps(plan.stats().snapshot())}")
+    return {v: chunks * c for v, c in calls.items()}
+
+
+def ladder_path(run, dev) -> dict:
+    """plan_for(auto)'s degradation ladder on the card: injected plan.alloc
+    faults at the first, then the first two allocations give the streamed
+    and the disk tier; a genuine OutOfMemoryError from the in-memory upload
+    (the caching allocator capped between the streamed and the in-memory
+    need) gives the streamed tier.  Each demoted plan computes mode 0,
+    held against the in-memory fused output.  Returns the K1/K2 launches
+    the ladder's plans should have made."""
+    import torch
+    from repro_torch.core.streaming import reservation_for
+    from repro_torch.engine import in_memory_bytes, plan_for
+    from repro_torch.faults import FaultPlan, FaultRule, inject
+    name, fs, bs = run["name"], run["factors"], run["stream_blco"]
+    want_out = run["outs"][0][0]
+    variant = run["modes"][0][2]
+    path = os.path.join(STORE_DIR, f"{name}-ladder.blco")
+    kw = dict(rank=RANK, backend="auto", queues=QUEUES, kernel="cuda",
+              device=dev, store_path=path)
+
+    def check(plan, tier, demotions, what):
+        if plan.backend != tier or plan.stats().demotions != demotions:
+            raise AssertionError(f"{name} ladder, {what}: {plan.backend} "
+                                 f"after {plan.stats().demotions} demotions, "
+                                 f"expected {tier} after {demotions}")
+        rel, fro, _ = check_err(f"{name} ladder, {what}: mode 0",
+                                plan.mttkrp(fs, 0), want_out)
+        plan.close()
+        say(f"[disk] {name} ladder, {what}: -> {tier}, demotions "
+            f"{demotions}; mode 0 vs in-memory fused max-rel {rel:.3e}, "
+            f"Frobenius-rel {fro:.3e}")
+
+    for nths, tier in (((1,), "streamed"), ((1, 2), "disk_streamed")):
+        rules = tuple(FaultRule("plan.alloc", nth=n) for n in nths)
+        with inject.active(FaultPlan(seed=SEED, rules=rules)):
+            plan = plan_for(bs, torch.cuda.mem_get_info()[0], **kw)
+        check(plan, tier, len(nths), f"injected plan.alloc at allocations "
+              f"{list(nths)}")
+    os.unlink(path)
+    in_need = in_memory_bytes(bs)
+    st_need = reservation_for(bs).bytes_in_flight(QUEUES)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    cap = reserved + (in_need + st_need) // 2
+    say(f"[disk] {name} ladder: allocated {torch.cuda.memory_allocated(dev)} "
+        f"B, reserved {reserved} B; in-memory need {in_need} B, streamed "
+        f"need {st_need} B; allocator capped at {cap} B "
+        f"({cap / total:.6f} of {total} B)")
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        plan = plan_for(bs, torch.cuda.mem_get_info()[0], **kw)
+        check(plan, "streamed", 1, "a real OutOfMemoryError at the "
+              "in-memory upload")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    chunks = len(bs.launches)
+    return {v: 3 * chunks * (v == variant) for v in FUSED}
+
+
 # --------------------------------------------------------------- phase 4
 def roof(nbytes, ops, ops_per_s) -> tuple[float, str]:
     """max(bytes / HBM rate, ops / peak rate) in ms, and which bounds."""
@@ -968,6 +1123,8 @@ def stream_timing(runs, rates, dev) -> None:
             fill_ms = host_ms(lambda: [plan.chunks.chunk_into(i, bufs)
                                        for i in range(chunks)]) / chunks
             mem_ms = run["fused_ms"][mode]
+            run.setdefault("stream_ms", {})[mode] = ms
+            run.setdefault("fill_ms", {})[mode] = fill_ms
             say(f"[stream] {name} mode {mode} {variant}: streamed "
                 f"{ms:.3f} ms per call (median of 5, queues={plan.queues}, "
                 f"{chunks} chunks); fill {fill_ms:.3f} ms per chunk "
@@ -987,6 +1144,112 @@ def stream_timing(runs, rates, dev) -> None:
         p.close()
     say(f"[stream] {run['name']} mode 0 queue sweep (median of 5): "
         + ", ".join(sweep))
+
+
+def drop_pages(path) -> None:
+    """Ask the host to drop the file's pages from its cache (a hint)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+class PreadvChunks:
+    """The read the store's is held against: each section's rows of a
+    launch read with ``os.preadv`` straight into the ring's host set (the
+    store reads by copying its memmap slices, which measured faster)."""
+
+    def __init__(self, stored):
+        self.stored = stored
+        self.offsets = [stored._header["sections"][name]["offset"]
+                        for name in ("hi", "lo", "vals", "bases")]
+
+    def __len__(self) -> int:
+        return self.stored.num_launches
+
+    def chunk_into(self, i, bufs) -> int:
+        fd = os.open(self.stored.path, os.O_RDONLY)
+        try:
+            for off, buf in zip(self.offsets, bufs):
+                view = memoryview(buf.reshape(-1).view(np.uint8))
+                done = 0
+                while done < view.nbytes:
+                    got = os.preadv(fd, [view[done:]],
+                                    off + i * view.nbytes + done)
+                    if got == 0:
+                        raise EOFError(f"{self.stored.path}: short read")
+                    done += got
+        finally:
+            os.close(fd)
+        return self.stored.chunk(i)[4]
+
+
+def disk_timing(runs, dev) -> None:
+    """Each mode's disk-streamed call beside the host-streamed one; the read
+    of a chunk by both routes (``StoredBLCO.chunk_into``, a copy out of the
+    memmap slices into the pinned ring, which the plan takes; ``os.preadv``
+    into the same ring) beside the host fill of [stream]; mode 0 through
+    both routes; and one cold call by each route after the file's pages
+    are dropped."""
+    import torch
+    from repro_torch.core import stream_mttkrp
+    from repro_torch.engine import DiskStreamedPlan
+    for run in runs:
+        name, fs = run["name"], run["factors"]
+        # a fresh plan: the old one's memmaps keep the file's pages mapped,
+        # and mapped pages are not dropped
+        path = run["disk_plan"].stored.path
+        run["disk_plan"].close()
+        plan = run["disk_plan"] = DiskStreamedPlan(path, queues=QUEUES,
+                                                   device=dev)
+        stored = plan.stored
+        chunks = stored.num_launches
+        pread = PreadvChunks(stored)
+
+        def by_preadv(mode):
+            return stream_mttkrp(pread, stored, fs, mode, queues=plan.queues,
+                                 kernel="cuda", buffers=plan.buffers)
+
+        cold = {}
+        for route, call in (("preadv", lambda: by_preadv(0)),
+                            ("memmap", lambda: plan.mttkrp(fs, 0))):
+            drop_pages(path)
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            cold[route] = (time.perf_counter() - t0) * 1e3
+        say(f"[disk] {name} mode 0 cold call (after fsync and "
+            f"POSIX_FADV_DONTNEED; a hint the host may ignore): memmap "
+            f"{cold['memmap']:.3f} ms, preadv {cold['preadv']:.3f} ms")
+        bufs = plan.buffers.host_set(0)
+        mmap_ms = host_ms(lambda: [stored.chunk_into(i, bufs)
+                                   for i in range(chunks)]) / chunks
+        read_ms = host_ms(lambda: [pread.chunk_into(i, bufs)
+                                   for i in range(chunks)]) / chunks
+        fill = run["fill_ms"]
+        say(f"[disk] {name}: read per chunk ({plan.spec.bytes_per_launch} "
+            f"B, median of 5, warm): memmap copy into the pinned ring "
+            f"(chunk_into) {mmap_ms:.3f} ms, preadv {read_ms:.3f} ms; host "
+            f"fill (LaunchChunks.chunk_into) {min(fill.values()):.3f}-"
+            f"{max(fill.values()):.3f} ms")
+        for mode, _, variant, _ in run["modes"]:
+            disk0 = plan.stats().disk_time_s
+            calls0 = plan.stats().mttkrp_calls
+            ms = host_ms(lambda: plan.mttkrp(fs, mode))
+            per_chunk = (plan.stats().disk_time_s - disk0) / (
+                plan.stats().mttkrp_calls - calls0) / chunks * 1e3
+            host = run["stream_ms"][mode]
+            say(f"[disk] {name} mode {mode} {variant}: disk-streamed "
+                f"{ms:.3f} ms per call (median of 5, queues={plan.queues}, "
+                f"{chunks} chunks; disk_time_s {per_chunk:.3f} ms per "
+                f"chunk), host-streamed {host:.3f} ms; disk / host "
+                f"{ms / host:.3f}")
+        mm_call = host_ms(lambda: plan.mttkrp(fs, 0))
+        pr_call = host_ms(lambda: by_preadv(0))
+        say(f"[disk] {name} mode 0 by route (median of 5): memmap "
+            f"{mm_call:.3f} ms, preadv {pr_call:.3f} ms per call")
 
 
 def device_split(prof, window) -> dict:
@@ -1196,10 +1459,38 @@ def main() -> int:
     for v in FUSED:
         launches[v] += stream_launches[v]
 
+    t_disk = time.perf_counter()
+    reset_launch_counts()
+    want = {v: 0 for v in FUSED}
+    for run in runs:
+        for v, n in disk_path(run, dev).items():
+            want[v] += n
+    for run in runs:
+        if run["name"] == LADDER:
+            for v, n in ladder_path(run, dev).items():
+                want[v] += n
+    disk_launches = dict(launch_counts)
+    say(f"[disk] kernel launches on the disk path and the ladder: "
+        f"{disk_launches} (chunks x calls: {want}); "
+        f"{time.perf_counter() - t_disk:.1f} s")
+    if disk_launches != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"the disk path launched {disk_launches}, "
+                             f"expected {want}")
+    for v in FUSED:
+        launches[v] += disk_launches[v]
+
     rows = timing_phase(runs)
     uniform_timing(dev)
     phases_timing(runs, rows)
     stream_timing(runs, h2d_rates(dev), dev)
+    t_disk = time.perf_counter()
+    disk_timing(runs, dev)
+    for run in runs:
+        path = run["disk_plan"].stored.path
+        run["disk_plan"].close()
+        os.unlink(path)
+    say(f"[disk] timing {time.perf_counter() - t_disk:.1f} s; store files "
+        f"deleted")
     profile_sweeps(runs, dev)
     dispatch_phase(dev)
     entries = []

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.faults import inject as faults
+
 from .blco import BLCOTensor
 from .counters import record_dispatch
 from .device import DEFAULT_DEVICE, resolve_device
@@ -76,6 +78,11 @@ class LaunchCache:
     def from_blco(cls, blco: BLCOTensor, reservation_nnz: int | None = None,
                   *, device=DEFAULT_DEVICE) -> "LaunchCache":
         """Pad + stack + upload every launch of ``blco`` (host work, once)."""
+        # the device-resident regime's allocation moment: a real
+        # torch.cuda.OutOfMemoryError surfaces from the upload below exactly
+        # like this injected probe, and plan_for's ladder demotes either to
+        # a streamed regime
+        faults.maybe_fail("plan.alloc")
         dev = resolve_device(device)
         max_launch = max((l.nnz for l in blco.launches), default=1)
         if reservation_nnz:

@@ -17,8 +17,10 @@ of pending blocks with compute on active blocks.  On the card:
 
 ``stream_mttkrp`` is the loop, ``OOMExecutor`` the single-tensor
 convenience wrapper, ``repro_torch.engine.StreamedPlan`` the engine's way
-in.  ``EngineStats`` holds the unified per-plan counters; its ``hist``
-comes with the port's observability slice.
+in, and ``repro_torch.store.DiskStreamedPlan`` the same loop fed from a
+``.blco`` store file.  Each copy passes the ``stream.h2d`` fault probe and
+is retried on a transient failure.  ``EngineStats`` holds the unified
+per-plan counters; its ``hist`` comes with the port's observability slice.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.faults import inject as faults
+from repro_torch.faults.retry import retry_call
 
 from .blco import BLCOTensor
 from .counters import record_dispatch
@@ -58,7 +63,7 @@ class EngineStats:
     total_time_s: float = 0.0
     retries: int = 0             # transient failures retried successfully
     giveups: int = 0             # retry budgets exhausted (error surfaced)
-    demotions: int = 0           # regime changes (none in the port yet)
+    demotions: int = 0           # regime changes (plan_for's ladder)
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -335,7 +340,10 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
     flight; the rest drain at the end.  ``chunks`` is a chunk source with
     ``chunk_into`` (a ``LaunchChunks``: the host buffer is filled in place)
     or any iterable of ``(hi, lo, vals, bases, n)`` tuples at the
-    reservation's shape (copied into it).  ``kernel="cuda"`` computes each
+    reservation's shape (copied into it); a store's ``DiskChunkSource``
+    has ``chunk_into`` too, which reads the chunk from the file into the
+    host buffer.  ``blco`` is a ``BLCOTensor`` or a ``StoredBLCO`` (dims,
+    re-encoding and value dtype).  ``kernel="cuda"`` computes each
     chunk with one K1/K2 launch over the reservation
     (``kernels.fused.fused_mttkrp_flat``), ``"torch"`` with the plain
     dataflow.  ``buffers`` is the ring, with at least ``queues`` sets on
@@ -347,10 +355,17 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
         resolution = choose_resolution(b.dims[mode])
     factors = tuple(factors)
     dev = factors[0].device
+    # ``b`` is a BLCOTensor or a StoredBLCO, which has no ``values`` and
+    # no launches: its chunks are padded to its own reservation
+    val_dtype = getattr(b, "value_dtype", None)
+    stored = val_dtype is not None
+    if not stored:
+        val_dtype = b.values.dtype
     own = buffers is None
     if own:
-        spec = reservation_for(b, getattr(chunks, "reservation_nnz", None))
-        buffers = StreamBuffers(spec, queues, b.values.dtype, device=dev)
+        spec = b.spec if stored else reservation_for(
+            b, getattr(chunks, "reservation_nnz", None))
+        buffers = StreamBuffers(spec, queues, val_dtype, device=dev)
     elif buffers.queues < queues:
         raise ValueError(f"{buffers.queues} buffer sets cannot keep "
                          f"{queues} chunks in flight")
@@ -360,7 +375,7 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
     # accumulate at the promoted precision (f64 values vs f32 factors must
     # not downcast)
     out_dtype = torch.promote_types(
-        torch.from_numpy(np.zeros(0, b.values.dtype)).dtype, factors[0].dtype)
+        torch.from_numpy(np.zeros(0, val_dtype)).dtype, factors[0].dtype)
     out = torch.zeros((b.dims[mode], rank), dtype=out_dtype, device=dev)
     stats = stats if stats is not None else EngineStats()
     fill = getattr(chunks, "chunk_into", None)
@@ -375,9 +390,15 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
         # waits until set k's last copy has left the host buffer
         bufs = buffers.host_set(k)
         n = fill(item, bufs) if fill is not None else _copy_chunk(item, bufs)
-        # faults.maybe_fail("stream.h2d") and retry_call wrap this upload
-        # (ROADMAP queue 1 item 6)
-        buffers.upload(k)
+
+        def _put():
+            faults.maybe_fail("stream.h2d")
+            buffers.upload(k)
+
+        # a transient copy failure (injected or genuine) is retried with
+        # backoff; a re-issued copy reads the same pinned set, so a retry
+        # has no side effect
+        retry_call(_put, site="stream.h2d", stats=stats)
         put_s = time.perf_counter() - t0
         stats.put_time_s += put_s
         stats.h2d_bytes += buffers.spec.bytes_per_launch

@@ -10,7 +10,10 @@ The port of ``repro.engine.api``.  Every way to execute an MTTKRP is an
     plan.stats()                 -> unified EngineStats
     plan.close()                 -> release device buffers; returns bytes freed
 
-The port has two backends so far, ``InMemoryPlan`` and ``StreamedPlan``.
+An ``MTTKRPEngine`` turns a BLCO tensor + a device budget into a plan; the
+default engine (``repro_torch.engine.DefaultEngine`` over ``plan_for``)
+implements the paper's regime decision.  The port has three backends so
+far: ``InMemoryPlan``, ``StreamedPlan`` and ``DiskStreamedPlan``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.core.streaming import EngineStats
 class ExecutionPlan(Protocol):
     """A concrete, introspectable way to execute MTTKRPs for one tensor."""
 
-    backend: str          # "in_memory" or "streamed"
+    backend: str          # "in_memory" | "streamed" | "disk_streamed"
 
     def mttkrp(self, factors, mode: int):
         """Mode-``mode`` MTTKRP of the planned tensor with ``factors``."""
@@ -43,6 +46,15 @@ class ExecutionPlan(Protocol):
 
     def close(self) -> int:
         """Release device buffers; returns the bytes freed."""
+        ...
+
+
+@runtime_checkable
+class MTTKRPEngine(Protocol):
+    """Turns a tensor + budget into an ExecutionPlan (the regime decision)."""
+
+    def plan(self, blco: BLCOTensor, *, device_budget_bytes: int, rank: int,
+             dtype) -> ExecutionPlan:
         ...
 
 

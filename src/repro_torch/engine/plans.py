@@ -7,8 +7,10 @@
                  reservations (the paper's out-of-memory regime): one
                  K1/K2 launch per chunk with ``kernel="cuda"``.
 
-The sharded and baseline plans of ``repro.engine.plans`` are later slices
-of the port (ROADMAP.md, queue 1).
+The disk tier's ``DiskStreamedPlan`` lives in ``repro_torch.store``.  The
+sharded and baseline plans of ``repro.engine.plans`` are later slices of
+the port (ROADMAP.md, queue 1).  Each ``mttkrp`` call records a
+``plan.mttkrp`` span when tracing is on (``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.mttkrp import DEFAULT_COPIES, DeviceBLCO, validate_kernel
 from repro_torch.core.streaming import (EngineStats, LaunchChunks,
                                         ReservationSpec, StreamBuffers,
                                         reservation_for, stream_mttkrp)
+from repro_torch.obs import trace as obs_trace
 
 
 class InMemoryPlan:
@@ -67,18 +70,20 @@ class InMemoryPlan:
     def mttkrp(self, factors, mode: int, *, resolution: str | None = None,
                copies: int | None = None):
         dev = self.resident
-        c0 = dispatch_count()
-        t0 = time.perf_counter()
-        out = dev.mttkrp(
-            factors, mode, kernel=self.kernel,
-            resolution=resolution if resolution is not None
-            else self.resolution,
-            copies=copies if copies is not None else self.copies)
-        # host wall time of the (asynchronous) issue vs the fenced span
-        t1 = time.perf_counter()
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-        t2 = time.perf_counter()
+        with obs_trace.span("plan.mttkrp", "plan", backend=self.backend,
+                            mode=mode):
+            c0 = dispatch_count()
+            t0 = time.perf_counter()
+            out = dev.mttkrp(
+                factors, mode, kernel=self.kernel,
+                resolution=resolution if resolution is not None
+                else self.resolution,
+                copies=copies if copies is not None else self.copies)
+            # host wall time of the (asynchronous) issue vs the fenced span
+            t1 = time.perf_counter()
+            if out.is_cuda:
+                torch.cuda.synchronize(out.device)
+            t2 = time.perf_counter()
         self._stats.dispatch_time_s += t1 - t0
         self._stats.device_time_s += t2 - t0
         self._stats.total_time_s += t2 - t0
@@ -138,12 +143,15 @@ class StreamedPlan:
                copies: int | None = None):
         if self.buffers is None:
             raise RuntimeError("plan is closed")
-        return stream_mttkrp(
-            self.chunks, self.blco, factors, mode, queues=self.queues,
-            resolution=resolution if resolution is not None
-            else self.resolution,
-            copies=copies if copies is not None else self.copies,
-            stats=self._stats, kernel=self.kernel, buffers=self.buffers)
+        with obs_trace.span("plan.mttkrp", "plan", backend=self.backend,
+                            mode=mode):
+            return stream_mttkrp(
+                self.chunks, self.blco, factors, mode, queues=self.queues,
+                resolution=resolution if resolution is not None
+                else self.resolution,
+                copies=copies if copies is not None else self.copies,
+                stats=self._stats, kernel=self.kernel,
+                buffers=self.buffers)
 
     def device_bytes(self) -> int:
         """Reservation bytes in flight (the only device-resident state)."""
