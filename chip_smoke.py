@@ -68,6 +68,23 @@ Phases, each of which exits non-zero when it fails:
    ``torch.profiler`` split of one fused and one streamed CP-ALS sweep per
    tensor (K1/K2, the other kernels, the copies and the device's idle
    time);
+[baselines] the JAX package's baselines (COO, F-COO, CSF) in plain PyTorch
+   on both tensors at full size: each format's host build and upload
+   seconds, device bytes beside the BLCO launch cache's, peak device
+   memory (one format resident at a time), and per mode the ms of COO,
+   F-COO, CSF from the mode's own tree and from another root, beside the
+   fused K1/K2 call on the same mode (CUDA events, median of 5), each
+   output held against the fused one;
+[obs] the observability tier, with tracing and the bandwidth ledger on:
+   one CP-ALS sweep per regime (in memory, streamed and disk-streamed with
+   [stream]'s and [disk]'s set-ups, and COO) per tensor; the ledger held
+   exactly (relative error 0.0) against each plan's ``EngineStats``; the
+   roofline per regime and edge against peaks measured on the card (a
+   device-to-device copy, the best pinned host-to-device copy, the
+   store's best chunk read, an f32 GEMM), every achieved fraction at most
+   1.05; the Chrome trace written to ``build/obs_trace.json`` and its
+   track totals; and the in-memory call with tracing and the ledger on
+   against both off (printed, not gated);
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -232,6 +249,25 @@ def time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def event_times(fn, reps: int) -> list[float]:
+    """Milliseconds of each of ``reps`` calls, each between two CUDA events
+    on the current stream, after two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return ms
 
 
 # --------------------------------------------------------------- phase 1
@@ -459,7 +495,6 @@ def run_tensor(name, dims, nnz, dev) -> dict:
     say(f"[stream] {name}: build_blco(max_nnz_per_block="
         f"{STREAM[name][0]}) {time.perf_counter() - t0:.1f} s, launches "
         f"{[l.nnz for l in bs.launches]}")
-    del t
     say(f"[main] {name}: dims {dims} nnz {b.nnz}, of which the powerlaw "
         f"head {head_nnz} ({head_nnz / b.nnz:.4f}) and the uniform top-up "
         f"{b.nnz - head_nnz}; host generation: head {head_s:.1f} s, top-up "
@@ -529,7 +564,8 @@ def run_tensor(name, dims, nnz, dev) -> dict:
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return {"name": name, "plan": plan, "blco": b, "dims": dims,
             "nnz": b.nnz, "modes": modes, "outs": outs, "factors": factors,
-            "stream_blco": bs, "norm_x": norm_x, "fits": fits["cuda"]}
+            "stream_blco": bs, "norm_x": norm_x, "fits": fits["cuda"],
+            "tensor": t}
 
 
 def phases_path(run) -> None:
@@ -777,15 +813,22 @@ def roof(nbytes, ops, ops_per_s) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_bytes(nnz, dims, mode, rank) -> float:
+    """Bytes one f32 fused call must move: each input read once (nnz x (hi
+    + lo + value + N bases), the N-1 factor matrices), the output written
+    once — the bandwidth ledger's ``"cuda"`` model, so the kernel table and
+    the roofline count the same bytes."""
+    from repro_torch.obs.ledger import hbm_model_bytes
+    return hbm_model_bytes(nnz, order=len(dims), rank=rank, value_itemsize=4,
+                           factor_itemsize=4, kernel="cuda", dims=dims,
+                           mode=mode)
+
+
 def bound(nnz, dims, mode, rank) -> tuple[float, str]:
-    """Least milliseconds for one f32 fused call (each input read once, the
-    output written once; nnz * R * N operations) and what bounds it."""
-    item = 4
-    n = len(dims)
-    stream = nnz * (4 + 4 + item + 4 * n)
-    facs = sum(d * rank * item for m, d in enumerate(dims) if m != mode)
-    out = dims[mode] * rank * item
-    return roof(stream + facs + out, nnz * rank * n, F32_FLOPS)
+    """Least milliseconds for one f32 fused call (``fused_bytes``; nnz * R *
+    N operations) and what bounds it."""
+    return roof(fused_bytes(nnz, dims, mode, rank), nnz * rank * len(dims),
+                F32_FLOPS)
 
 
 def phase_bound(kernel, t, dims, mode, rank) -> tuple[float, str]:
@@ -1056,7 +1099,8 @@ def phases_timing(runs, rows) -> None:
 
 def h2d_rates(dev) -> dict:
     """Pinned and pageable host-to-device GB/s: one copy of
-    ``H2D_PROBE_BYTES`` timed by CUDA events, median of 10 after 2."""
+    ``H2D_PROBE_BYTES`` timed by CUDA events, median of 10 after 2 (and
+    the best of the 10, ``"<label> best"``)."""
     import statistics
 
     import torch
@@ -1065,23 +1109,15 @@ def h2d_rates(dev) -> dict:
     for label, pinned in (("pinned", True), ("pageable", False)):
         src = torch.ones(H2D_PROBE_BYTES, dtype=torch.uint8,
                          pin_memory=pinned)
-        for _ in range(2):
-            dst.copy_(src, non_blocking=True)
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(10):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            dst.copy_(src, non_blocking=True)
-            stop.record()
-            stop.synchronize()
-            ms.append(start.elapsed_time(stop))
+        ms = event_times(lambda: dst.copy_(src, non_blocking=True), 10)
         rates[label] = H2D_PROBE_BYTES / statistics.median(ms) / 1e6
+        rates[f"{label} best"] = H2D_PROBE_BYTES / min(ms) / 1e6
         del src
     say(f"[stream] H2D of {H2D_PROBE_BYTES} B, median of 10 by CUDA events: "
         f"pinned {rates['pinned']:.3f} GB/s, pageable "
-        f"{rates['pageable']:.3f} GB/s")
+        f"{rates['pageable']:.3f} GB/s (best of 10: pinned "
+        f"{rates['pinned best']:.3f}, pageable "
+        f"{rates['pageable best']:.3f} GB/s)")
     return rates
 
 
@@ -1128,8 +1164,9 @@ def stream_timing(runs, rates, dev) -> None:
             say(f"[stream] {name} mode {mode} {variant}: streamed "
                 f"{ms:.3f} ms per call (median of 5, queues={plan.queues}, "
                 f"{chunks} chunks); fill {fill_ms:.3f} ms per chunk "
-                f"(chunk_into alone; fill + issue + waits in the loop "
-                f"{put:.3f} ms); H2D floor {per_call / 1e9:.4f} GB / "
+                f"(chunk_into alone); copy {put:.3f} ms per chunk "
+                f"(put_time_s: CUDA events on the copy stream); H2D floor "
+                f"{per_call / 1e9:.4f} GB / "
                 f"{rates['pinned']:.3f} GB/s = {floor_ms:.3f} ms; in-memory "
                 f"{variant} {mem_ms:.4f} ms; streamed / in-memory "
                 f"{ms / mem_ms:.2f}; streamed / H2D floor "
@@ -1250,6 +1287,269 @@ def disk_timing(runs, dev) -> None:
         pr_call = host_ms(lambda: by_preadv(0))
         say(f"[disk] {name} mode 0 by route (median of 5): memmap "
             f"{mm_call:.3f} ms, preadv {pr_call:.3f} ms per call")
+
+
+# ----------------------------------------------------------- [baselines]
+# calls timed per (format, mode), each between two CUDA events
+MEDIAN_OF = 5
+
+
+def event_ms(fn, reps: int = MEDIAN_OF) -> float:
+    """Median milliseconds of ``reps`` calls (``event_times``)."""
+    import statistics
+    return statistics.median(event_times(fn, reps))
+
+
+def baselines_phase(runs, dev) -> None:
+    """The paper's comparison formats on both tensors at full size: each
+    format's host build and upload seconds, device bytes beside the BLCO
+    launch cache, peak device memory (one format resident at a time), and
+    per mode its ms beside the fused K1/K2 call, each output held against
+    the fused one."""
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.engine import BaselinePlan
+    formats = {"coo": (baselines.COOFormat, baselines.DeviceCOO),
+               "fcoo": (baselines.FCOOFormat, baselines.DeviceFCOO),
+               "csf": (baselines.CSFFormat, baselines.DeviceCSF)}
+    for run in runs:
+        name, t, fs, dims = run["name"], run["tensor"], run["factors"], \
+            run["dims"]
+        fused, cache_bytes = run["plan"], run["plan"].device_bytes()
+        say(f"[baselines] {name}: the JAX package's COO, F-COO and CSF "
+            f"ported as plain PyTorch (index_select, index_add_, "
+            f"scatter_reduce), not MM-CSF: the ratios to the fused call "
+            f"below are not the paper's 2.12-2.6x claim")
+        fused_ms = {mode: event_ms(lambda: fused.mttkrp(fs, mode))
+                    for mode in range(len(dims))}
+        for kind, (host_cls, dev_cls) in formats.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            fmt = host_cls.build(t)
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dev_fmt = dev_cls(fmt, device=dev)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            plan = BaselinePlan(dev_fmt, kind)
+            say(f"[baselines] {name} {kind}: host build {build_s:.2f} s, "
+                f"upload {upload_s:.2f} s; device bytes "
+                f"{plan.device_bytes()} B (host format "
+                f"{fmt.device_bytes()} B), BLCO launch cache {cache_bytes} "
+                f"B: {plan.device_bytes() / cache_bytes:.3f}x")
+            del fmt
+            for mode, d, variant, _ in run["modes"]:
+                calls = [(kind, lambda: plan.mttkrp(fs, mode))]
+                if kind == "csf":
+                    other = (mode + 1) % len(dims)
+                    calls = [("csf from its root", calls[0][1]),
+                             (f"csf from root {other}",
+                              lambda: dev_fmt.mttkrp(fs, mode, root=other))]
+                for label, fn in calls:
+                    out = fn()
+                    if out.shape != (d, RANK) \
+                            or not bool(torch.isfinite(out).all()):
+                        raise AssertionError(f"{name} mode {mode}: bad "
+                                             f"{label} output")
+                    rel, fro, _ = check_err(
+                        f"{name} mode {mode}: {label} vs fused", out,
+                        run["outs"][mode][0])
+                    del out
+                    ms = event_ms(fn)
+                    say(f"[baselines] {name} mode {mode} (I={d}) {label}: "
+                        f"{ms:.3f} ms, fused {variant} {fused_ms[mode]:.3f} ms"
+                        f" (CUDA events, median of {MEDIAN_OF}): "
+                        f"{ms / fused_ms[mode]:.2f}x the fused call; vs fused "
+                        f"max-rel {rel:.3e}, Frobenius-rel {fro:.3e}")
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            plan.close()
+            del plan, dev_fmt
+            torch.cuda.empty_cache()
+            say(f"[baselines] {name} {kind}: peak device memory {peak} B "
+                f"above the {base} B already allocated "
+                f"({peak / cache_bytes:.3f}x the BLCO launch cache)")
+
+
+# ----------------------------------------------------------------- [obs]
+# bytes of the device-to-device copy whose rate is the HBM peak
+HBM_PROBE_BYTES = 1 << 31
+# the f32 GEMM whose rate is the FLOP peak (TF32 off)
+GEMM_N = 8192
+# the guard on the roofline: no edge may beat its measured peak by more
+# than the spread between measurements
+FRACTION_LIMIT = 1.05
+TRACE_PATH = os.path.join(ROOT, "build", "obs_trace.json")
+
+
+def best_ms(fn, reps: int = 10) -> float:
+    """The least milliseconds of ``reps`` calls (``event_times``)."""
+    return min(event_times(fn, reps))
+
+
+def device_peaks(rates, dev) -> tuple[dict, float]:
+    """The HBM and host-to-device peaks (GB/s) and the f32 FLOP peak
+    (FLOP/s), measured on this card: a device-to-device copy of
+    ``HBM_PROBE_BYTES`` (bytes read and written), the best pinned copy of
+    ``H2D_PROBE_BYTES`` (``h2d_rates`` and once more here), an f32 GEMM of
+    ``GEMM_N`` with TF32 off."""
+    import torch
+    from repro_torch.obs import ledger
+    src = torch.empty(HBM_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    hbm = 2 * HBM_PROBE_BYTES / best_ms(lambda: dst.copy_(src)) / 1e6
+    del src, dst
+    host = torch.ones(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    h2d = max(rates["pinned best"], H2D_PROBE_BYTES / best_ms(
+        lambda: dst.copy_(host, non_blocking=True)) / 1e6)
+    del host, dst
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 FLOP peak needs TF32 off")
+    a = torch.randn(GEMM_N, GEMM_N, device=dev)
+    b = torch.randn(GEMM_N, GEMM_N, device=dev)
+    flops = 2 * GEMM_N ** 3 / best_ms(lambda: a @ b) * 1e3
+    del a, b
+    torch.cuda.empty_cache()
+    say(f"[obs] peaks on the card: HBM {hbm:.1f} GB/s (device-to-device "
+        f"copy of {HBM_PROBE_BYTES} B, read + written, best of 10; data "
+        f"sheet 3350), host-to-device {h2d:.3f} GB/s (pinned copy of "
+        f"{H2D_PROBE_BYTES} B, best of 20), f32 GEMM {flops / 1e12:.2f} "
+        f"TFLOP/s ({GEMM_N}^3, TF32 off, best of 10; data sheet 67)")
+    return {ledger.DEVICE_HBM: hbm, ledger.HOST_DEVICE: h2d}, flops
+
+
+def store_read_peak(plan) -> float:
+    """GB/s of the store's best chunk read (``StoredBLCO.chunk_into``, the
+    memmap copy into the plan's pinned ring), over three passes."""
+    stored, bufs = plan.stored, plan.buffers.host_set(0)
+    best = math.inf
+    for _ in range(3):
+        for i in range(stored.num_launches):
+            t0 = time.perf_counter()
+            stored.chunk_into(i, bufs)
+            best = min(best, time.perf_counter() - t0)
+    return plan.spec.bytes_per_launch / best / 1e9
+
+
+def obs_phase(runs, rates, dev) -> dict:
+    """One CP-ALS sweep per regime and tensor with tracing and the ledger
+    on: the ledger held exactly against each plan's stats, the roofline
+    against the card's measured peaks (every achieved fraction at most
+    ``FRACTION_LIMIT``), the Chrome trace and its track totals.  Returns
+    the K1/K2 launches the sweeps should have made, per variant."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import cp_als_init, cp_als_step
+    from repro_torch.engine import DiskStreamedPlan, InMemoryPlan, plan_for
+    from repro_torch.obs import ledger
+    peaks, peak_flops = device_peaks(rates, dev)
+    want = {v: 0 for v in FUSED}
+    obs.trace.clear()
+    obs.trace.enable()
+    for run in runs:
+        name, dims = run["name"], run["dims"]
+        bs = run["stream_blco"]
+        store = run["disk_plan"].stored.path
+        # on before the plans are made: the COO plan records its upload
+        ledger.clear()
+        ledger.enable()
+        plans = [
+            InMemoryPlan(run["blco"], kernel="cuda", resident=run["plan"]
+                         .resident, owns_resident=False),
+            plan_for(bs, STREAM[name][1], rank=RANK, backend="auto",
+                     queues=QUEUES, kernel="cuda", device=dev),
+            DiskStreamedPlan(store, queues=QUEUES, device=dev),
+            plan_for(run["blco"], torch.cuda.mem_get_info()[0], rank=RANK,
+                     backend="coo", kernel="torch", device=dev,
+                     tensor=run["tensor"]),
+        ]
+        if [p.backend for p in plans] != ["in_memory", "streamed",
+                                          "disk_streamed", "coo"]:
+            raise AssertionError(f"{name}: [obs] plans {plans}")
+        disk_peak = store_read_peak(plans[2])
+        for plan in plans:
+            state = cp_als_init(dims, RANK, norm_x=run["norm_x"], tol=0.0,
+                                seed=SEED, device=dev)
+            t0 = time.perf_counter()
+            cp_als_step(plan, state)
+            torch.cuda.synchronize()
+            say(f"[obs] {name} {plan.backend} sweep: "
+                f"{time.perf_counter() - t0:.4f} s, fit {state.fits[-1]:.6f}")
+        ledger.disable()
+        chunks = len(bs.launches)
+        for _, _, variant, _ in run["modes"]:
+            want[variant] += 1 + 2 * chunks
+        disk_peak = max(disk_peak, store_read_peak(plans[2]))
+        pairs = [(p.backend, p.stats()) for p in plans]
+        report = ledger.verify_conservation(pairs)
+        say(f"[obs] {name}: conservation over {len(report['checks'])} "
+            f"(regime, edge, field) checks, max relative error "
+            f"{report['max_rel_err']!r}")
+        if report["max_rel_err"] != 0.0:
+            bad = [c for c in report["checks"] if c["rel_err"]]
+            raise AssertionError(f"{name}: the ledger disagrees with the "
+                                 f"stats: {bad}")
+        tensor_peaks = dict(peaks)
+        tensor_peaks[ledger.DISK_HOST] = disk_peak
+        say(f"[obs] {name}: disk-to-host peak {disk_peak:.3f} GB/s (the "
+            f"store's best chunk read into the pinned ring, three passes "
+            f"before and after the sweeps)")
+        roof = obs.roofline_report(peaks=tensor_peaks, peak_flops=peak_flops)
+        worst = 0.0
+        for regime, rep in roof["regimes"].items():
+            for edge, e in sorted(rep["edges"].items()):
+                frac = e.get("achieved_fraction")
+                worst = max(worst, frac or 0.0)
+                say(f"[obs] {name} {regime} {edge}: {e['bytes']} B in "
+                    f"{e['seconds']:.6f} s over {e['ops']} records, "
+                    f"{e['gb_per_s']:.3f} GB/s"
+                    + (f" = {frac:.4f} of {e['peak_gb_per_s']:.3f}"
+                       if frac is not None else ""))
+            say(f"[obs] {name} {regime}: saturated edge "
+                f"{rep['saturated_edge']}, {rep['bound']}, arithmetic "
+                f"intensity {rep['arithmetic_intensity']:.4f} flop/B, "
+                f"{rep['gflops_per_s']:.3f} GFLOP/s")
+        if worst > FRACTION_LIMIT:
+            raise AssertionError(f"{name}: an edge reads {worst:.4f} of its "
+                                 f"measured peak (limit {FRACTION_LIMIT})")
+        for plan in plans:
+            plan.close()
+        torch.cuda.empty_cache()
+    obs.trace.disable()
+    doc = obs.write_chrome_trace(TRACE_PATH)
+    totals = obs.track_totals()
+    say(f"[obs] Chrome trace {os.path.relpath(TRACE_PATH, ROOT)}: "
+        f"{len(doc['traceEvents'])} events, dropped "
+        f"{doc['otherData']['dropped_spans']}; seconds per track "
+        + ", ".join(f"{k} {v:.6f}" for k, v in sorted(totals.items())))
+    obs.trace.clear()
+    return want
+
+
+def overhead_phase(run) -> None:
+    """The in-memory call (mode 0) with tracing and the ledger both on
+    against both off, in turns (off, on, on, off): the mean of each
+    state's two medians of 5 calls."""
+    from repro_torch import obs
+    plan, fs = run["plan"], run["factors"]
+    times = {"off": [], "on": []}
+    for state in ("off", "on", "on", "off"):
+        if state == "on":
+            obs.trace.enable()
+            obs.ledger.enable()
+        times[state].append(host_ms(lambda: plan.mttkrp(fs, 0)))
+        obs.trace.disable()
+        obs.ledger.disable()
+    obs.trace.clear()
+    obs.ledger.clear()
+    off, on = (sum(times[s]) / 2 for s in ("off", "on"))
+    say(f"[obs] {run['name']} in-memory mode-0 call: {off:.4f} ms with "
+        f"tracing and the ledger off, {on:.4f} ms with both on "
+        f"({(on / off - 1) * 100:+.2f}%; the reference's bar is +2%; not "
+        f"gated)")
 
 
 def device_split(prof, window) -> dict:
@@ -1482,15 +1782,35 @@ def main() -> int:
     rows = timing_phase(runs)
     uniform_timing(dev)
     phases_timing(runs, rows)
-    stream_timing(runs, h2d_rates(dev), dev)
+    rates = h2d_rates(dev)
+    stream_timing(runs, rates, dev)
     t_disk = time.perf_counter()
     disk_timing(runs, dev)
+    say(f"[disk] timing {time.perf_counter() - t_disk:.1f} s")
+
+    t_phase = time.perf_counter()
+    baselines_phase(runs, dev)
+    say(f"[baselines] {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    want = obs_phase(runs, rates, dev)
+    obs_launches = dict(launch_counts)
+    say(f"[obs] kernel launches of the sweeps: {obs_launches} (one per "
+        f"mode in memory, chunks per mode streamed and from disk: {want}); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if obs_launches != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"the [obs] sweeps launched {obs_launches}, "
+                             f"expected {want}")
+    for v in FUSED:
+        launches[v] += obs_launches[v]
+    overhead_phase(runs[0])
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()
         os.unlink(path)
-    say(f"[disk] timing {time.perf_counter() - t_disk:.1f} s; store files "
-        f"deleted")
+        del run["tensor"]
+    say("[disk] store files deleted")
     profile_sweeps(runs, dev)
     dispatch_phase(dev)
     entries = []

@@ -1,6 +1,6 @@
 """Core library of the PyTorch port: BLCO format, mode-agnostic MTTKRP,
 launch cache, CP-ALS and out-of-memory streaming (the paper's in-memory
-and out-of-memory regimes)."""
+and out-of-memory regimes), and the baselines it is compared against."""
 from .tensor import (SparseTensor, from_coo, load_tns, paper_like,
                      random_tensor, top_up_uniform)
 from .blco import BLCOTensor, build_blco, decode_coords, format_bytes
@@ -10,6 +10,8 @@ from .mttkrp import (DEFAULT_COPIES, KERNELS, DeviceBLCO, choose_resolution,
                      mttkrp_per_launch, validate_kernel)
 from .launches import LaunchCache, launch_cache_bytes, stacked_mttkrp
 from .counters import dispatch_count
+from .baselines import (COOFormat, CSFFormat, FCOOFormat, coo_mttkrp,
+                        csf_mttkrp, fcoo_mttkrp)
 from .cp_als import (CPResult, CPState, as_mttkrp_fn, cp_als, cp_als_init,
                      cp_als_step, init_factors, reconstruct_dense)
 from .streaming import (EngineStats, LaunchChunks, OOMExecutor,
@@ -25,6 +27,8 @@ __all__ = [
     "validate_kernel", "launch_cache_for", "clear_launch_cache", "mttkrp",
     "mttkrp_per_launch",
     "LaunchCache", "launch_cache_bytes", "stacked_mttkrp", "dispatch_count",
+    "COOFormat", "coo_mttkrp", "FCOOFormat", "fcoo_mttkrp",
+    "CSFFormat", "csf_mttkrp",
     "CPResult", "CPState", "as_mttkrp_fn", "cp_als", "cp_als_init",
     "cp_als_step", "init_factors", "reconstruct_dense",
     "EngineStats", "LaunchChunks", "OOMExecutor", "ReservationSpec",

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.faults import inject as faults
+from repro_torch.obs import trace as obs_trace
 
 from .blco import BLCOTensor
 from .counters import record_dispatch
@@ -161,10 +162,15 @@ class LaunchCache:
             raise ValueError(f"mode {mode} out of range for order {self.order}")
         if resolution == "auto":
             resolution = choose_resolution(self.dims[mode])
-        return stacked_mttkrp(
-            self.hi, self.lo, self.vals, self.bases, tuple(factors),
-            re_fields=self.re_fields, re_shifts=self.re_shifts, mode=mode,
-            out_rows=self.dims[mode], resolution=resolution, copies=copies)
+        # the span covers the host's issue of the launches (asynchronous on
+        # the card); the fenced device time is the plan's device.fence
+        with obs_trace.span("launch_cache.scan", "dispatch",
+                            launches=self.num_launches, mode=mode):
+            return stacked_mttkrp(
+                self.hi, self.lo, self.vals, self.bases, tuple(factors),
+                re_fields=self.re_fields, re_shifts=self.re_shifts,
+                mode=mode, out_rows=self.dims[mode], resolution=resolution,
+                copies=copies)
 
     # ---------------------------------------------------------------- release
     def delete(self) -> None:

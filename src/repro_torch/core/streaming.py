@@ -20,7 +20,9 @@ convenience wrapper, ``repro_torch.engine.StreamedPlan`` the engine's way
 in, and ``repro_torch.store.DiskStreamedPlan`` the same loop fed from a
 ``.blco`` store file.  Each copy passes the ``stream.h2d`` fault probe and
 is retried on a transient failure.  ``EngineStats`` holds the unified
-per-plan counters; its ``hist`` comes with the port's observability slice.
+per-plan counters and their distributions (``hist``); the spans of
+``repro_torch.obs.trace`` and the records of ``repro_torch.obs.ledger``
+take the same floats.
 """
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ import torch
 
 from repro_torch.faults import inject as faults
 from repro_torch.faults.retry import retry_call
+from repro_torch.obs import ledger as obs_ledger
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.hist import EngineHists
 
 from .blco import BLCOTensor
 from .counters import record_dispatch
@@ -50,6 +55,16 @@ class EngineStats:
     compute: ``dispatch_time_s`` is the host wall time spent issuing compute
     calls; ``device_time_s`` is the fenced span from the first issue of a
     call until the device has finished it (``torch.cuda.synchronize()``).
+    ``compute_time_s`` is a read-only alias of ``device_time_s``.
+    ``put_time_s`` is the host-to-device copies alone: on the card each
+    copy timed by a pair of CUDA events on the copy stream, on the CPU the
+    host clock around the synchronous copy; filling or reading the chunk
+    into the host buffer is not part of it.
+
+    ``hist`` keeps the per-event distributions behind the scalar totals
+    (per-launch dispatch latency, per-chunk copy and disk-read times,
+    per-launch nnz — :class:`repro_torch.obs.hist.EngineHists`): the
+    scalar sums equal the histogram sums by construction.
     """
     backend: str = ""
     mttkrp_calls: int = 0
@@ -64,9 +79,29 @@ class EngineStats:
     retries: int = 0             # transient failures retried successfully
     giveups: int = 0             # retry budgets exhausted (error surfaced)
     demotions: int = 0           # regime changes (plan_for's ladder)
+    hist: EngineHists = dataclasses.field(default_factory=EngineHists)
+
+    @property
+    def compute_time_s(self) -> float:
+        return self.device_time_s
 
     def snapshot(self) -> dict:
-        return dataclasses.asdict(self)
+        return {
+            "backend": self.backend,
+            "mttkrp_calls": self.mttkrp_calls,
+            "h2d_bytes": self.h2d_bytes,
+            "disk_bytes": self.disk_bytes,
+            "launches": self.launches,
+            "put_time_s": self.put_time_s,
+            "disk_time_s": self.disk_time_s,
+            "dispatch_time_s": self.dispatch_time_s,
+            "device_time_s": self.device_time_s,
+            "total_time_s": self.total_time_s,
+            "retries": self.retries,
+            "giveups": self.giveups,
+            "demotions": self.demotions,
+            "hist": self.hist.snapshot(),
+        }
 
 
 # the reference's older name for the same counters
@@ -254,18 +289,38 @@ class StreamBuffers:
             self._copied[k].synchronize()
         return self._host_views[k]
 
-    def upload(self, k: int) -> None:
+    def upload(self, k: int):
         """Copy host set ``k`` to device set ``k``: on the card
         asynchronously, on the copy stream, after the last compute that
-        read device set ``k``."""
+        read device set ``k``.  On the card returns the copy's ``(start,
+        stop)`` timing events, recorded on the copy stream right around it
+        (after the wait, so a wait for the compute is not counted); on the
+        CPU the copy is synchronous and the result ``None``."""
         self._check_open()
         if self.copy_stream is None:
             self._dev[k].copy_(self._host[k])
-            return
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self.copy_stream):
             self.copy_stream.wait_event(self._read[k])
+            start.record(self.copy_stream)
             self._dev[k].copy_(self._host[k], non_blocking=True)
+            stop.record(self.copy_stream)
             self._copied[k].record(self.copy_stream)
+        return start, stop
+
+    def anchor(self):
+        """``(event, host seconds)``: an event recorded on the copy stream
+        and the host clock read just before it, which place the copies'
+        events on the host clock; ``None`` on the CPU."""
+        self._check_open()
+        if self.copy_stream is None:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        event.record(self.copy_stream)
+        return event, t
 
     def device_set(self, k: int):
         """Device set ``k``, ``(hi, lo, vals, bases)``, for work on the
@@ -384,30 +439,41 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
     t_start = time.perf_counter()
     in_flight: collections.deque = collections.deque()
     t_first_dispatch: float | None = None
+    nnz_total = 0                     # true nnz launched, for the HBM model
+    # per chunk: the host clock before and after the copy's issue, the
+    # copy's timing events on the card (None on the CPU) and its nnz;
+    # read once the call is fenced
+    puts: list = []
+    # the copy stream is idle here (the last call ended with a
+    # synchronize), so the anchor's event is stamped one submission
+    # latency (microseconds; more if this thread is preempted between the
+    # clock read and the record) after the host clock read: every copy is
+    # placed that much too early on the host clock, and its duration is
+    # exact
+    anchor = buffers.anchor()
 
     def _issue(k, item):
-        t0 = time.perf_counter()
         # waits until set k's last copy has left the host buffer
         bufs = buffers.host_set(k)
         n = fill(item, bufs) if fill is not None else _copy_chunk(item, bufs)
+        # the put is the copy alone: the clock starts once the chunk is in
+        # the host buffer, as the reference's starts after its iterator
+        # has filled or read the chunk
+        t0 = time.perf_counter()
 
         def _put():
             faults.maybe_fail("stream.h2d")
-            buffers.upload(k)
+            return buffers.upload(k)
 
         # a transient copy failure (injected or genuine) is retried with
         # backoff; a re-issued copy reads the same pinned set, so a retry
         # has no side effect
-        retry_call(_put, site="stream.h2d", stats=stats)
-        put_s = time.perf_counter() - t0
-        stats.put_time_s += put_s
-        stats.h2d_bytes += buffers.spec.bytes_per_launch
-        # obs_trace "h2d.put" and obs_ledger.record(HOST_DEVICE,
-        # bytes_per_launch, put_s) take these same floats (item 8)
+        events = retry_call(_put, site="stream.h2d", stats=stats)
+        puts.append((t0, time.perf_counter(), events, n))
         in_flight.append((k, n))
 
     def _consume(k, n):
-        nonlocal t_first_dispatch
+        nonlocal t_first_dispatch, nnz_total
         t0 = time.perf_counter()
         if t_first_dispatch is None:
             t_first_dispatch = t0
@@ -427,10 +493,13 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
         out.add_(part)
         buffers.release(k)
         # host wall time of the (asynchronous) issue only
-        dispatch_s = time.perf_counter() - t0
-        stats.dispatch_time_s += dispatch_s
+        t1 = time.perf_counter()
+        stats.dispatch_time_s += t1 - t0
+        stats.hist.dispatch_s.record(t1 - t0)
         stats.launches += 1
-        # obs_trace "dispatch.launch" takes these same floats (item 8)
+        nnz_total += n
+        if obs_trace.TRACING.enabled:
+            obs_trace.add_event("dispatch.launch", "dispatch", t0, t1, nnz=n)
 
     try:
         for i, item in enumerate(items):
@@ -446,11 +515,48 @@ def stream_mttkrp(chunks, blco: BLCOTensor, factors, mode: int, *,
         if own:
             buffers.close()
     t_end = time.perf_counter()
+    nbytes = buffers.spec.bytes_per_launch
+    for t0, t1, events, n in puts:
+        if events is None:
+            put_s = t1 - t0
+        else:
+            # the copy's own span on the device, placed on the host clock
+            # through the anchor
+            put_s = events[0].elapsed_time(events[1]) / 1e3
+            t0 = anchor[1] + anchor[0].elapsed_time(events[0]) / 1e3
+            t1 = t0 + put_s
+        stats.put_time_s += put_s
+        stats.h2d_bytes += nbytes
+        stats.hist.put_chunk_s.record(put_s)
+        stats.hist.launch_nnz.record(n)
+        if obs_trace.TRACING.enabled:
+            obs_trace.add_event("h2d.put", "h2d", t0, t1, bytes=nbytes, nnz=n)
+        if obs_ledger.LEDGER.enabled:
+            # same nbytes / put_s that fed the stats counters above: the
+            # ledger's host_device account conserves put_time_s /
+            # h2d_bytes exactly, by construction
+            obs_ledger.record(obs_ledger.HOST_DEVICE, nbytes, put_s,
+                              regime=stats.backend)
     if t_first_dispatch is not None:
-        # fenced: first dispatch -> every launch retired on the device;
-        # obs_trace "device.fence" and the obs_ledger DEVICE_HBM record
-        # take this same window (item 8)
-        stats.device_time_s += t_end - t_first_dispatch
+        # fenced: first dispatch -> every launch retired on the device
+        fence_s = t_end - t_first_dispatch
+        stats.device_time_s += fence_s
+        if obs_trace.TRACING.enabled:
+            obs_trace.add_event("device.fence", "device", t_first_dispatch,
+                                t_end, launches=stats.launches)
+        if obs_ledger.LEDGER.enabled:
+            # fenced seconds are measured (same window as device_time_s);
+            # HBM bytes are model-attributed over the true nnz launched
+            obs_ledger.record(
+                obs_ledger.DEVICE_HBM,
+                obs_ledger.hbm_model_bytes(
+                    nnz_total, order=b.order, rank=rank,
+                    value_itemsize=np.dtype(val_dtype).itemsize,
+                    factor_itemsize=factors[0].element_size(),
+                    kernel=kernel, dims=b.dims, mode=mode),
+                fence_s, regime=stats.backend,
+                flops=obs_ledger.mttkrp_flops(nnz_total, order=b.order,
+                                              rank=rank))
     stats.mttkrp_calls += 1
     stats.total_time_s += t_end - t_start
     return out

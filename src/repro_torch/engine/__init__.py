@@ -8,19 +8,21 @@
 
 Backends: InMemoryPlan (device-resident), StreamedPlan (host-resident,
 fixed reservations), DiskStreamedPlan (a ``.blco`` store file streamed
-through the same ring — ``repro_torch.store``).  ``plan_for`` implements
-the paper's regime decision (give it ``host_budget_bytes`` to extend it to
-the disk tier) and, in auto mode, falls a memory tier on an allocation
-failure; ``DefaultEngine`` wraps it behind the ``MTTKRPEngine`` protocol.
+through the same ring — ``repro_torch.store``), BaselinePlan (COO / F-COO /
+CSF in plain PyTorch: ``plan_for(backend="coo", kernel="torch")``).
+``plan_for`` implements the paper's regime decision (give it
+``host_budget_bytes`` to extend it to the disk tier) and, in auto mode,
+falls a memory tier on an allocation failure; ``DefaultEngine`` wraps it
+behind the ``MTTKRPEngine`` protocol.
 """
 from repro_torch.core.streaming import EngineStats
 from repro_torch.store import DiskStreamedPlan
 
 from .api import ExecutionPlan, MTTKRPEngine, factor_bytes, in_memory_bytes
-from .plans import InMemoryPlan, StreamedPlan
+from .plans import BASELINE_KINDS, BaselinePlan, InMemoryPlan, StreamedPlan
 from .select import AUTO_BACKENDS, UNPORTED_BACKENDS, DefaultEngine, plan_for
 
 __all__ = ["EngineStats", "ExecutionPlan", "MTTKRPEngine", "factor_bytes",
            "in_memory_bytes", "InMemoryPlan", "StreamedPlan",
-           "DiskStreamedPlan", "AUTO_BACKENDS", "UNPORTED_BACKENDS",
-           "DefaultEngine", "plan_for"]
+           "DiskStreamedPlan", "BaselinePlan", "BASELINE_KINDS",
+           "AUTO_BACKENDS", "UNPORTED_BACKENDS", "DefaultEngine", "plan_for"]

@@ -11,7 +11,10 @@ The port of ``repro.engine.select``, for one device:
                    the ring (one tier below the paper's OOM regime);
     streamed       otherwise — fixed reservations stream the host-resident
                    tensor (the paper's out-of-memory regime), provided the
-                   reservations in flight plus the factor working set fit.
+                   reservations in flight plus the factor working set fit;
+    baselines      never auto-selected; request ``backend="coo"|"fcoo"|
+                   "csf"`` explicitly (with ``kernel="torch"``: they are
+                   plain PyTorch) for parity with the paper's comparisons.
 
 In auto mode an allocation failure — an injected ``plan.alloc`` fault or a
 genuine ``torch.cuda.OutOfMemoryError`` — falls one memory tier: in_memory
@@ -22,8 +25,8 @@ JAX package retries a ``KernelFailure`` with its reference dataflow, the
 port lets it propagate, for ``kernel="cuda"`` and ``"torch"`` alike — no
 fallback hides a kernel that did not build or launch.
 
-The sharded and baseline backends of ``repro.engine.select`` are later
-slices of the port: asking for one by name raises ``NotImplementedError``.
+The sharded backend of ``repro.engine.select`` is a later slice of the
+port: asking for it by name raises ``NotImplementedError``.
 
 ``DefaultEngine`` wraps the same decision behind the ``MTTKRPEngine``
 protocol for callers that hold an engine rather than call ``plan_for``.
@@ -45,18 +48,15 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.store import DiskStreamedPlan
 
 from .api import factor_bytes, in_memory_bytes
-from .plans import InMemoryPlan, StreamedPlan
+from .plans import BASELINE_KINDS, BaselinePlan, InMemoryPlan, StreamedPlan
 
 # backends of the JAX package that the port has not reached yet, with the
 # ROADMAP.md queue-1 item that ports each
 UNPORTED_BACKENDS = {
     "sharded": "queue 1 item 10 (sharded MTTKRP)",
-    "coo": "queue 1 item 7 (baselines)",
-    "fcoo": "queue 1 item 7 (baselines)",
-    "csf": "queue 1 item 7 (baselines)",
 }
 AUTO_BACKENDS = ("auto", "in_memory", "streamed", "disk_streamed") \
-    + tuple(UNPORTED_BACKENDS)
+    + tuple(UNPORTED_BACKENDS) + BASELINE_KINDS
 
 
 def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
@@ -64,14 +64,20 @@ def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
              reservation_nnz: int | None = None, resolution: str = "auto",
              copies: int = DEFAULT_COPIES, kernel: str = "cuda",
              device=DEFAULT_DEVICE, host_budget_bytes: int | None = None,
-             store_path: str | None = None, sanitize: bool | None = None):
+             store_path: str | None = None, sanitize: bool | None = None,
+             tensor=None):
     """Build the ExecutionPlan for ``blco`` under ``device_budget_bytes``.
+
+    ``tensor`` (the original SparseTensor) is only consulted for baseline
+    backends; without it the coordinates are decoded from the BLCO copy.
 
     ``kernel`` selects the compute path: ``"cuda"`` (the fused kernel: one
     launch per call in memory, one per chunk streamed) or ``"torch"`` (the
-    plain reference dataflow).  ``queues`` and ``reservation_nnz`` shape
-    the streamed regimes' ring.  ``device`` defaults to the card;
-    ``device="cpu"`` runs the plain versions on the host.
+    plain reference dataflow, and the only kernel of the baseline
+    backends, which raise ``ValueError`` for any other).  ``queues`` and
+    ``reservation_nnz`` shape the streamed regimes' ring.  ``device``
+    defaults to the card; ``device="cpu"`` runs the plain versions on the
+    host.
 
     ``host_budget_bytes`` extends the regime decision one memory tier
     down: when the tensor's host footprint (``format_bytes``) exceeds it,
@@ -93,7 +99,7 @@ def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
             backend=backend, queues=queues, reservation_nnz=reservation_nnz,
             resolution=resolution, copies=copies, kernel=kernel,
             device=device, host_budget_bytes=host_budget_bytes,
-            store_path=store_path)
+            store_path=store_path, tensor=tensor)
         sp.set(backend=plan.backend)
         return wrap_plan(plan, enable=sanitize)
 
@@ -102,12 +108,19 @@ def _plan_for_impl(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
                    dtype, backend: str, queues: int,
                    reservation_nnz: int | None, resolution: str, copies: int,
                    kernel: str, device, host_budget_bytes: int | None,
-                   store_path: str | None):
+                   store_path: str | None, tensor):
     if backend not in AUTO_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"expected one of {AUTO_BACKENDS}")
     validate_kernel(kernel)
     device = resolve_device(device)
+    if backend in BASELINE_KINDS:
+        if kernel != "torch":
+            raise ValueError(f"kernel={kernel!r} is not supported on "
+                             f"baseline backends; use kernel='torch'")
+        return BaselinePlan.from_tensor(tensor, backend, device=device) \
+            if tensor is not None \
+            else BaselinePlan.from_blco(blco, backend, device=device)
     if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend {backend!r} is not ported to PyTorch yet; "

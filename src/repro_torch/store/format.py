@@ -55,6 +55,7 @@ from repro_torch.core.streaming import (LaunchChunks, ReservationSpec,
                                         reservation_for)
 from repro_torch.faults import inject as faults
 from repro_torch.faults.retry import retry_call
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import trace as obs_trace
 
 MAGIC = b"BLCOSTR1"
@@ -285,8 +286,13 @@ class DiskChunkSource:
         if self.stats is not None:
             self.stats.disk_time_s += t1 - t0
             self.stats.disk_bytes += nbytes
-            # EngineStats.hist.disk_read_s and the obs_ledger DISK_HOST
-            # record take these same floats (ROADMAP queue 1 item 8)
+            self.stats.hist.disk_read_s.record(t1 - t0)
+            if obs_ledger.LEDGER.enabled:
+                # same nbytes / t1 - t0 as the stats counters, and only
+                # when stats are carried — ledger and EngineStats stay in
+                # lockstep (exact conservation)
+                obs_ledger.record(obs_ledger.DISK_HOST, nbytes, t1 - t0,
+                                  regime=self.stats.backend)
         if obs_trace.TRACING.enabled:
             obs_trace.add_event("store.read", "store", t0, t1,
                                 launch=i, bytes=nbytes)
