@@ -85,6 +85,20 @@ Phases, each of which exits non-zero when it fails:
    1.05; the Chrome trace written to ``build/obs_trace.json`` and its
    track totals; and the in-memory call with tracing and the ledger on
    against both off (printed, not gated);
+[service] the multi-tenant service (``repro_torch.service``) on both
+   tensors: three jobs of two tenants (NELL-2 twice, Uber) under one 8 GB
+   budget share one resident NELL-2 copy (registry hits and misses, pooled
+   and admitted bytes, ``memory_allocated``), each job's fits held against
+   a solo run, one ``MTTKRPQuery``, K1/K2 launches = sweeps x modes, and
+   the first job rerun on a fresh service (its spread printed, not
+   gated); two NELL-2 jobs admitted streamed under 1.8 GB hold ONE pooled
+   ring (pool, ``memory_allocated``, pinned bytes), launches = chunks x
+   calls; a ``ServiceRuntime`` job on Uber snapshotted from the caller's
+   thread after sweep 2, restored (adopted, disk-streamed) and finished
+   against an uninterrupted run; five of tests/test_chaos.py's scenarios
+   on Uber at full size; per-sweep seconds per regime, the Prometheus
+   exposition and the SLO report; ``build/service/`` is deleted at the
+   end;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -1529,6 +1543,455 @@ def obs_phase(runs, rates, dev) -> dict:
     return want
 
 
+# ------------------------------------------------------------- [service]
+# the multi-tenant service: its own device budgets, the jobs' sweeps, the
+# snapshot's directory (build/ is not committed; deleted at the end), the
+# chaos runs' rank, sweeps and scenarios (tests/test_chaos.py's SCENARIOS)
+SERVICE_DIR = os.path.join(ROOT, "build", "service")
+SERVICE_BUDGET = int(8e9)
+SERVICE_STREAM_SWEEPS = 3
+SERVICE_DISK_SWEEPS = 6
+CHAOS_RANK, CHAOS_SWEEPS = 8, 3
+CHAOS = {
+    "alloc-failure": ("mem", (("plan.alloc", None, 1),)),
+    "h2d-failure": ("disk", (("stream.h2d", None, 2), ("stream.h2d", None, 6))),
+    "nan-poison": ("mem", (("factors.nan", None, 3),)),
+    "quantum-exception": ("mem", (("runtime.quantum", "exception", 2),)),
+    "worker-death": ("mem", (("runtime.quantum", "crash", 3),)),
+}
+MIB = 1 << 20
+# every service of the phase: the smoke's queue depth, on the card
+SERVICE_KW = {"queues": QUEUES, "device": "cuda"}
+
+
+def fresh_service(registry=None, **kw):
+    """A ``DecompositionService`` on the card; ``registry`` shares another
+    service's registry (its BLCO builds), so a second service on the same
+    tensor does not run ``build_blco`` again."""
+    from repro_torch.service import DecompositionService
+    svc = DecompositionService(**SERVICE_KW, **kw)
+    if registry is not None:
+        svc.registry = registry
+    return svc
+
+
+def drive(svc, regimes) -> dict:
+    """``svc.run()`` one quantum at a time; returns each job's quantum
+    seconds (fenced) and adds them to ``regimes[(backend, tensor)]``."""
+    import torch
+    names = {dims: name for name, (dims, _) in TENSORS.items()}
+    per_job = {}
+    more = True
+    while more:
+        n = len(svc.scheduler.trace)
+        t0 = time.perf_counter()
+        more = svc.step()
+        torch.cuda.synchronize()
+        if len(svc.scheduler.trace) > n:
+            job = svc.scheduler.jobs[svc.scheduler.trace[-1]]
+            secs = time.perf_counter() - t0
+            per_job.setdefault(job.job_id, []).append(secs)
+            regimes.setdefault((job.metrics.backend,
+                                names[tuple(job.handle.dims)]),
+                               []).append(secs)
+    return per_job
+
+
+def fused_launches(run, calls_per_mode, chunks=1) -> dict:
+    """K1/K2 launches of ``calls_per_mode`` calls of every mode of one
+    tensor, ``chunks`` launches per call."""
+    want = {v: 0 for v in FUSED}
+    for _, _, variant, _ in run["modes"]:
+        want[variant] += calls_per_mode * chunks
+    return want
+
+
+def counted(fn, want, what) -> dict:
+    """Run ``fn``; its K1/K2 launches (counted just before and just after)
+    must equal ``want``; returns them."""
+    from repro_torch.kernels import launch_counts
+    before = dict(launch_counts)
+    fn()
+    took = {k: launch_counts[k] - before[k] for k in KERNELS}
+    if took != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"[service] {what} launched {took}, expected "
+                             f"{want}")
+    say(f"[service] {what}: K1/K2 launches {took} (sweeps x modes x "
+        f"chunks)")
+    return took
+
+
+def add_launches(total, took) -> None:
+    for k, n in took.items():
+        total[k] = total.get(k, 0) + n
+
+
+def state_bytes(cp) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in list(cp.factors) + list(cp.grams) + [cp.lam])
+
+
+def solo_fits(run, seed, sweeps, norm_x, dev) -> list:
+    """``sweeps`` CP-ALS sweeps of one tensor over ``plan_for(kernel=
+    "cuda")``'s in-memory plan (the main path's), from ``seed``."""
+    from repro_torch.core import cp_als_init, cp_als_step
+    state = cp_als_init(run["dims"], RANK, norm_x=norm_x, tol=0.0, seed=seed,
+                        device=dev)
+    for _ in range(sweeps):
+        cp_als_step(run["plan"], state)
+    return state.fits
+
+
+def check_fits(what, got, want, tol=FIT_TOL) -> float:
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if len(got) != len(want) or not all(math.isfinite(f) for f in got) \
+            or diff > tol:
+        raise AssertionError(f"[service] {what}: fits {got} vs {want}")
+    return diff
+
+
+def service_resident(runs, dev, launches, regimes) -> dict:
+    """Three jobs of two tenants on NELL-2 (twice) and Uber under one 8 GB
+    budget: one resident NELL-2 copy, fits against solo runs, a one-shot
+    query, the launches, and a rerun of the first job on a fresh service
+    (its spread printed: the evidence a deterministic option would need)."""
+    import torch
+    from repro_torch.engine import factor_bytes, in_memory_bytes
+    from repro_torch.service import MTTKRPQuery, SubmitDecomposition
+    nell, uber = runs
+    svc = fresh_service(device_budget_bytes=SERVICE_BUDGET)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    jobs = ((nell, 1, "acme", 2.0), (nell, 2, "umbrella", 1.0),
+            (uber, 3, "umbrella", 1.0))
+    t0 = time.perf_counter()
+    ids = [svc.submit(SubmitDecomposition(
+        tensor=run["tensor"], rank=RANK, iters=SWEEPS, tol=0.0, seed=seed,
+        tenant=tenant, weight=weight)) for run, seed, tenant, weight in jobs]
+    torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated(dev) - mem0
+    reg = svc.registry
+    handles = [svc.scheduler.jobs[j].handle for j in ids]
+    caches = in_memory_bytes(handles[0].blco) + in_memory_bytes(
+        handles[2].blco)
+    working = sum(factor_bytes(run["dims"], RANK, torch.float32)
+                  for run, *_ in jobs)
+    states = sum(state_bytes(svc.scheduler.jobs[j].cp) for j in ids)
+    m = svc.service_metrics()
+    say(f"[service] resident pool: 3 jobs submitted in {submit_s:.1f} s "
+        f"(the registry's build_blco of NELL-2 and Uber and the uploads); "
+        f"registry misses {reg.misses} hits {reg.hits}; backends "
+        f"{[svc.status(j).backend for j in ids]}; resident copies "
+        f"{svc.engine.resident_count}, pooled {svc.engine.pooled_bytes()} B "
+        f"(launch caches {caches} B); admitted "
+        f"{m['admitted_reservation_bytes']} B (+ working sets {working} B); "
+        f"memory_allocated rose {rise} B (caches + job states {states} B = "
+        f"{caches + states} B)")
+    if (reg.misses, reg.hits) != (2, 1) or svc.engine.resident_count != 2 \
+            or [svc.status(j).backend for j in ids] != ["in_memory"] * 3 \
+            or svc.engine.pooled_bytes() != caches \
+            or m["admitted_reservation_bytes"] != caches + working \
+            or abs(rise - (caches + states)) > MIB:
+        raise AssertionError("[service] resident pool accounting")
+    t0 = time.perf_counter()
+    got = svc.mttkrp(MTTKRPQuery(tensor=nell["tensor"],
+                                 factors=nell["factors"], mode=2))
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    rel, fro, _ = check_err("[service] MTTKRPQuery NELL-2 mode 2", got,
+                            nell["plan"].mttkrp(nell["factors"], 2))
+    say(f"[service] MTTKRPQuery NELL-2 mode 2 on {got.device}: {query_s:.3f} "
+        f"s, vs InMemoryPlan.mttkrp max-rel {rel:.3e}, Frobenius-rel "
+        f"{fro:.3e}")
+    want = {v: 0 for v in FUSED}
+    for run, *_ in jobs:
+        add_launches(want, fused_launches(run, SWEEPS))
+    per_job = {}
+    add_launches(launches, counted(
+        lambda: per_job.update(drive(svc, regimes)), want,
+        "resident pool, 3 jobs x 5 sweeps"))
+    fits = {}
+    for (run, seed, tenant, _), j in zip(jobs, ids):
+        res = svc.result(j).result
+        solo = solo_fits(run, seed, SWEEPS, handles[0 if run is nell else 2]
+                         .norm_x, dev)
+        diff = check_fits(f"{run['name']} seed {seed}", res.fits, solo)
+        fits[(run["name"], seed)] = res
+        per = per_job[j]
+        say(f"[service] job {j} ({run['name']}, seed {seed}, {tenant}, "
+            f"{svc.status(j).backend}): sweeps {[round(s, 4) for s in per]} "
+            f"s (mean {sum(per) / len(per):.4f} s); fits {res.fits}; max "
+            f"|dfit| from a solo plan_for(kernel='cuda') run {diff:.2e}")
+    say(f"[service] tenant iterations {m['tenant_iterations']} -> "
+        f"{svc.service_metrics()['tenant_iterations']}; trace "
+        f"{svc.scheduler.trace}")
+    rerun = fresh_service(registry=reg, device_budget_bytes=SERVICE_BUDGET)
+    j = rerun.submit(SubmitDecomposition(tensor=nell["tensor"], rank=RANK,
+                                         iters=SWEEPS, tol=0.0, seed=1,
+                                         tenant="acme", weight=2.0))
+    took = counted(lambda: drive(rerun, regimes),
+                   fused_launches(nell, SWEEPS),
+                   "rerun of job 0 on a fresh service")
+    add_launches(launches, took)
+    a, b = fits[("nell-2", 1)], rerun.result(j).result
+    same = a.fits == b.fits and all(torch.equal(x, y) for x, y in
+                                    zip(a.factors, b.factors))
+    dfit = max(abs(x - y) for x, y in zip(a.fits, b.fits))
+    dfac = max(float((x - y).abs().max()) for x, y in zip(a.factors,
+                                                          b.factors))
+    say(f"[service] rerun spread (NELL-2, seed 1, two fresh services): "
+        f"bit-identical {same}; max |dfit| {dfit:.3e}; max |dfactor| "
+        f"{dfac:.3e}")
+    return {"service": svc, "fits": fits}
+
+
+def service_streamed(runs, dev, launches, regimes, first) -> None:
+    """Two NELL-2 jobs admitted streamed under 1.8 GB with [stream]'s
+    build: ONE pooled ring for both, by the pool, ``memory_allocated`` and
+    the rings' pinned bytes; fits against the resident pool's; launches
+    chunks x calls."""
+    import torch
+    from repro_torch.core.streaming import StreamBuffers
+    from repro_torch.service import BuildParams, SubmitDecomposition
+    nell = runs[0]
+    build = BuildParams(max_nnz_per_block=STREAM["nell-2"][0])
+    svc = fresh_service(device_budget_bytes=int(STREAM["nell-2"][1]))
+    torch.cuda.synchronize()
+    mem0, pinned0 = torch.cuda.memory_allocated(dev), \
+        StreamBuffers.pinned_bytes()
+    t0 = time.perf_counter()
+    ids = [svc.submit(SubmitDecomposition(
+        tensor=nell["tensor"], rank=RANK, iters=SERVICE_STREAM_SWEEPS,
+        tol=0.0, seed=seed, build=build, tenant=tenant))
+        for seed, tenant in ((1, "acme"), (2, "umbrella"))]
+    torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated(dev) - mem0
+    pinned = StreamBuffers.pinned_bytes() - pinned0
+    jobs = [svc.scheduler.jobs[j] for j in ids]
+    spec = jobs[0].handle.spec
+    ring = spec.bytes_in_flight(QUEUES)
+    states = sum(state_bytes(j.cp) for j in jobs)
+    chunks = len(jobs[0].handle.blco.launches)
+    say(f"[service] stream pool: 2 jobs submitted in {submit_s:.1f} s "
+        f"(build_blco with max_nnz_per_block={build.max_nnz_per_block}); "
+        f"backends {[j.metrics.backend for j in jobs]}; pool size "
+        f"{svc.engine.pool_size}, pooled {svc.engine.pooled_bytes()} B "
+        f"(one ring: {QUEUES} x {spec.bytes_per_launch} B = {ring} B); one "
+        f"ring object {jobs[0].plan.buffers is jobs[1].plan.buffers}; "
+        f"memory_allocated rose {rise} B (ring + job states {states} B = "
+        f"{ring + states} B; two rings would be {2 * ring + states} B); "
+        f"pinned host bytes of open rings rose {pinned} B; admitted "
+        f"{svc.service_metrics()['admitted_reservation_bytes']} B")
+    if [j.metrics.backend for j in jobs] != ["streamed"] * 2 \
+            or svc.engine.pool_size != 1 or svc.engine.pooled_bytes() != ring \
+            or jobs[0].plan.buffers is not jobs[1].plan.buffers \
+            or abs(rise - (ring + states)) > MIB or pinned != ring:
+        raise AssertionError("[service] the two streamed jobs do not hold "
+                             "one ring")
+    per_job = {}
+    took = counted(lambda: per_job.update(drive(svc, regimes)),
+                   fused_launches(nell, 2 * SERVICE_STREAM_SWEEPS, chunks),
+                   f"stream pool, 2 jobs x {SERVICE_STREAM_SWEEPS} sweeps x "
+                   f"{chunks} chunks")
+    add_launches(launches, took)
+    for j, seed in zip(ids, (1, 2)):
+        res = svc.result(j).result
+        diff = check_fits(f"streamed NELL-2 seed {seed}", res.fits,
+                          first["fits"][("nell-2", seed)].fits[
+                              :SERVICE_STREAM_SWEEPS])
+        per = per_job[j]
+        say(f"[service] job {j} (nell-2, seed {seed}, streamed): sweeps "
+            f"{[round(s, 4) for s in per]} s (mean {sum(per) / len(per):.4f}"
+            f" s); max |dfit| from the resident pool's {diff:.2e}")
+    if svc.engine.pool_size or StreamBuffers.pinned_bytes() != pinned0:
+        raise AssertionError("[service] the ring outlived its jobs")
+
+
+def service_snapshot(runs, dev, launches, regimes) -> None:
+    """One Uber job on a ``ServiceRuntime`` with a store: snapshotted from
+    this (the caller's) thread after sweep 2 while the worker sweeps,
+    restored in a fresh runtime (adopted, not rebuilt; disk-streamed) and
+    finished; fits against an uninterrupted run."""
+    import torch
+    from repro_torch.service import ServiceRuntime, SubmitDecomposition
+    uber = runs[1]
+    store, snap = os.path.join(SERVICE_DIR, "store"), \
+        os.path.join(SERVICE_DIR, "snap")
+    kw = dict(device_budget_bytes=SERVICE_BUDGET, store_dir=store,
+              **SERVICE_KW)
+    req = SubmitDecomposition(tensor=uber["tensor"], rank=RANK,
+                              iters=SERVICE_DISK_SWEEPS, tol=0.0, seed=3,
+                              tenant="umbrella")
+    ref = fresh_service(device_budget_bytes=SERVICE_BUDGET, store_dir=store)
+    rj = ref.submit(req)
+    add_launches(launches, counted(
+        lambda: drive(ref, regimes),
+        fused_launches(uber, SERVICE_DISK_SWEEPS),
+        f"uninterrupted Uber job ({SERVICE_DISK_SWEEPS} sweeps, in memory)"))
+    ref_fits = ref.result(rj).result.fits
+    from repro_torch.kernels import launch_counts
+    before = dict(launch_counts)
+    # the runtime's service shares the uninterrupted run's registry: the
+    # job runs in memory until the snapshot persists the tensor
+    with ServiceRuntime(fresh_service(registry=ref.registry,
+                                      device_budget_bytes=SERVICE_BUDGET,
+                                      store_dir=store)) as rt:
+        jid = rt.submit(req)
+        feed = rt.subscribe(jid)
+        while True:
+            ev = feed.get(timeout=600)
+            if ev is None:
+                raise AssertionError("[service] no sweep event in 600 s")
+            if ev.kind == "iteration" and ev.iteration >= 2:
+                break
+        rt.unsubscribe(feed)
+        t0 = time.perf_counter()
+        manifest = rt.snapshot(snap)
+        snap_s = time.perf_counter() - t0
+    [rec] = manifest["jobs"]
+    t0 = time.perf_counter()
+    rt2 = ServiceRuntime.restore(snap, **kw)
+    restore_s = time.perf_counter() - t0
+    st = rt2.status(jid)
+    say(f"[service] snapshot of the running Uber job from the caller's "
+        f"thread at sweep {rec['iteration']} in {snap_s:.3f} s (tensor "
+        f"persisted to {os.path.relpath(store, ROOT)}); restore in "
+        f"{restore_s:.3f} s: registry misses {rt2.service.registry.misses}, "
+        f"state {st.state}, iteration {st.iteration}, backend {st.backend}")
+    if rt2.service.registry.misses != 0 or st.backend != "disk_streamed" \
+            or st.iteration != rec["iteration"]:
+        raise AssertionError("[service] restore")
+    with rt2:
+        t0 = time.perf_counter()
+        done = rt2.wait(jid, timeout=600)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        fits = rt2.result(jid).result.fits
+    took = {k: launch_counts[k] - before[k] for k in KERNELS}
+    add_launches(launches, took)
+    left = SERVICE_DISK_SWEEPS - rec["iteration"]
+    say(f"[service] resumed job {done.state} in {resume_s:.2f} s "
+        f"({left} disk-streamed sweeps, {resume_s / max(left, 1):.4f} s "
+        f"each); K1/K2 launches of the runtime's sweeps {took}")
+    diff = check_fits("restored Uber job", fits, ref_fits)
+    say(f"[service] restored fits {fits}; uninterrupted {ref_fits}; "
+        f"largest |dfit| {diff:.3e}")
+    regimes.setdefault(("disk_streamed (resumed, runtime)", "uber"),
+                       []).extend([resume_s / max(left, 1)] * left)
+
+
+def chaos_run(uber, kind, store, registry, rules=()) -> tuple:
+    """Two Uber jobs through a ``ServiceRuntime`` (rank 8, 3 sweeps) under
+    the fault rules; ``kind`` "disk" spills every registration (a 1-byte
+    host budget)."""
+    from repro_torch.faults import FaultPlan, FaultRule, inject
+    from repro_torch.service import ServiceRuntime, SubmitDecomposition
+    kw = {"host_budget_bytes": 1, "store_dir": store} if kind == "disk" \
+        else {}
+    svc = fresh_service(registry=registry if kind == "mem" else None,
+                        device_budget_bytes=SERVICE_BUDGET, **kw)
+    plan = FaultPlan(seed=1234, rules=tuple(
+        FaultRule(site, kind=k, nth=n) for site, k, n in rules))
+    out = {}
+    with inject.active(plan if rules else None):
+        with ServiceRuntime(svc) as rt:
+            ids = [rt.submit(SubmitDecomposition(
+                tensor=uber["tensor"], rank=CHAOS_RANK, iters=CHAOS_SWEEPS,
+                tol=0.0, seed=seed, tenant=tenant, weight=w))
+                for seed, tenant, w in ((1, "acme", 1.0),
+                                        (2, "umbrella", 2.0))]
+            if not rt.drain(timeout=600):
+                raise AssertionError("[service] chaos workload did not drain")
+            for n, j in enumerate(ids):
+                st = rt.status(j)
+                out[n] = (st.state, st.backend, st.error_payload,
+                          rt.result(j).result.fits if st.state == "done"
+                          else None)
+            metrics = rt.service_metrics()
+            alive = rt._error is None
+    return out, metrics, alive, svc.registry
+
+
+def service_chaos(runs, launches) -> None:
+    """tests/test_chaos.py's scenarios on Uber at full size: every job done
+    (fits within FIT_TOL of the fault-free run) or failed with a payload,
+    the worker alive, the admission ledger released."""
+    from repro_torch.analysis.sanitize import sanitized
+    from repro_torch.kernels import launch_counts
+    uber = runs[1]
+    store = os.path.join(SERVICE_DIR, "chaos")
+    before = dict(launch_counts)
+    with sanitized():
+        refs, registry = {}, None
+        for kind in ("mem", "disk"):
+            t0 = time.perf_counter()
+            out, _, alive, reg = chaos_run(uber, kind, store, registry)
+            registry = registry or reg
+            if not alive or any(v[0] != "done" for v in out.values()):
+                raise AssertionError(f"[service] fault-free {kind} run: {out}")
+            refs[kind] = out
+            say(f"[service] chaos reference ({kind}): backends "
+                f"{[v[1] for v in out.values()]}, {time.perf_counter() - t0:.2f}"
+                f" s")
+        for name, (kind, rules) in CHAOS.items():
+            t0 = time.perf_counter()
+            out, m, alive, _ = chaos_run(uber, kind, store, registry, rules)
+            diffs = []
+            for n, (state, backend, payload, fits) in out.items():
+                if state == "done":
+                    diffs.append(check_fits(f"chaos {name} job {n}", fits,
+                                            refs[kind][n][3]))
+                elif state != "failed" or not payload or not {
+                        "type", "message", "where", "transient",
+                        "injected"} <= set(payload):
+                    raise AssertionError(f"[service] chaos {name}: job {n} "
+                                         f"{state} {payload}")
+            if not alive or m["admitted_reservation_bytes"] != 0:
+                raise AssertionError(f"[service] chaos {name}: worker alive "
+                                     f"{alive}, admitted "
+                                     f"{m['admitted_reservation_bytes']}")
+            say(f"[service] chaos {name} ({kind}): "
+                f"{[(v[0], v[1], v[2]['type'] if v[2] else None) for v in out.values()]}; "
+                f"retries {m['retries_total']}, demotions "
+                f"{m['demotions_total']}, watchdog restarts "
+                f"{m['watchdog_restarts']}; max |dfit| of done jobs "
+                f"{max(diffs, default=0.0):.2e}; "
+                f"{time.perf_counter() - t0:.2f} s")
+    add_launches(launches, {k: launch_counts[k] - before[k]
+                            for k in KERNELS})
+
+
+def service_phase(runs, dev) -> dict:
+    """The ``[service]`` phase; returns the K1/K2 launches made through the
+    service (the solo runs the fits are held against are not counted)."""
+    from repro_torch.service import GetMetrics
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    launches, regimes = {}, {}
+    try:
+        first = service_resident(runs, dev, launches, regimes)
+        service_streamed(runs, dev, launches, regimes, first)
+        service_snapshot(runs, dev, launches, regimes)
+        service_chaos(runs, launches)
+    finally:
+        shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    for (regime, name), secs in sorted(regimes.items()):
+        say(f"[service] per-sweep seconds, {name} {regime}: mean "
+            f"{sum(secs) / len(secs):.4f} s over {len(secs)} sweeps (min "
+            f"{min(secs):.4f}, max {max(secs):.4f})")
+    svc = first["service"]
+    prom = svc.get_metrics(GetMetrics(format="prometheus"))
+    lines = prom.splitlines()
+    say(f"[service] render_prometheus: {len(lines)} lines, "
+        f"{sum(1 for x in lines if x and not x.startswith('#'))} samples")
+    say(f"[service] slo_report: {json.dumps(svc.get_slo(), sort_keys=True)}")
+    say(f"[service] {os.path.relpath(SERVICE_DIR, ROOT)} deleted; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -1805,6 +2268,14 @@ def main() -> int:
     for v in FUSED:
         launches[v] += obs_launches[v]
     overhead_phase(runs[0])
+    reset_launch_counts()
+    service_launches = service_phase(runs, dev)
+    say(f"[service] kernel launches through the service: {service_launches}")
+    if not all(service_launches.get(v, 0) > 0 for v in FUSED):
+        raise AssertionError(f"a kernel of the service's path never ran: "
+                             f"{service_launches}")
+    for v in FUSED:
+        launches[v] += service_launches[v]
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

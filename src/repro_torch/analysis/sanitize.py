@@ -1,15 +1,22 @@
-"""Runtime sanitizer: contract checks over any ExecutionPlan.
+"""Runtime sanitizer: contract checks over any ExecutionPlan + the service.
 
-The plan half of ``repro.analysis.sanitize``.  Enabled via
-``REPRO_SANITIZE=1`` (read dynamically, so tests can flip it per case) or
-programmatically (``plan_for(..., sanitize=True)``, or the ``sanitized()``
-context manager).  When enabled, every plan handed out by ``plan_for`` is
-wrapped in a :class:`SanitizedPlan` enforcing the mttkrp boundary
-contract — factor shapes against the tensor dims, output shape
-``(dims[mode], rank)``, no silent dtype downcast below the promoted input
-dtype, and a NaN/Inf guard on the result; :func:`check_factors` guards
-factor matrices.  The scheduler audits and lock assertions come with the
-service.
+The port of ``repro.analysis.sanitize``.  Enabled via ``REPRO_SANITIZE=1``
+(read dynamically, so tests can flip it per case) or programmatically
+(``plan_for(..., sanitize=True)``, or the ``sanitized()`` context
+manager).  When enabled:
+
+* every plan handed out by ``plan_for`` / the service engine is wrapped in
+  a :class:`SanitizedPlan` enforcing the mttkrp boundary contract —
+  factor shapes against the tensor dims, output shape ``(dims[mode],
+  rank)``, no silent dtype downcast below the promoted input dtype, and a
+  NaN/Inf guard on the result;
+* the scheduler audits its admission ledger on every admit/retire edge:
+  the byte total it charged must equal the engine's live pooled bytes
+  plus the active jobs' factor working sets;
+* scheduler mutations assert the runtime lock is held by the calling
+  thread whenever a :class:`~repro_torch.service.runtime.ServiceRuntime`
+  owns the scheduler (``guard_lock``);
+* factor updates are checked finite after every ALS sweep.
 
 All checks raise :class:`SanitizerError` (an ``AssertionError`` subclass,
 so ``pytest.raises(AssertionError)`` also catches it).  The wrapper only
@@ -167,6 +174,7 @@ def wrap_plan(plan, enable: bool | None = None):
     return SanitizedPlan(plan)
 
 
+# ---------------------------------------------------------------- service
 def check_factors(arrays, where: str) -> None:
     """NaN/Inf guard over factor matrices (no-op when disabled)."""
     if not sanitize_enabled():
@@ -174,3 +182,52 @@ def check_factors(arrays, where: str) -> None:
     for i, arr in enumerate(arrays):
         if not bool(torch.isfinite(torch.as_tensor(arr)).all()):
             raise SanitizerError(f"non-finite factor matrix {i} ({where})")
+
+
+def audit_scheduler(scheduler, where: str) -> None:
+    """Ledger audit: charged bytes == measured resident bytes.
+
+    Pooled accounting: a pool entry is charged by whichever plan created
+    it and released by whichever closes last, so between those events the
+    entry's bytes live in the ledger but in no single active plan's
+    ``device_bytes()``.  The measured quantity is therefore the engine's
+    live pool footprint plus every active job's private factor working
+    set (``_working`` on pooled plans; unpooled plans fall back to their
+    full ``device_bytes()``).
+    """
+    if not sanitize_enabled():
+        return
+    held = 0
+    for job_id in scheduler.active:
+        plan = scheduler.jobs[job_id].plan
+        if plan is None:
+            continue
+        working = getattr(plan, "_working", None)
+        held += working if working is not None else plan.device_bytes()
+    pooled_fn = getattr(scheduler.engine, "pooled_bytes", None)
+    pooled = pooled_fn() if pooled_fn is not None else 0
+    ledger = scheduler.metrics.admitted_reservation_bytes
+    if held + pooled != ledger:
+        raise SanitizerError(
+            f"admission ledger out of sync at {where}: ledger holds "
+            f"{ledger} B but pools measure {pooled} B + active working "
+            f"sets {held} B (PR-4 overcommit bug class)")
+
+
+def assert_owned(lock, what: str) -> None:
+    """Assert the calling thread holds ``lock`` (RLock ownership check)."""
+    if lock is None:
+        return
+    is_owned = getattr(lock, "_is_owned", None)
+    if is_owned is not None and not is_owned():
+        raise SanitizerError(
+            f"{what} requires the runtime lock, but the calling thread "
+            f"does not hold it — unsynchronized scheduler access")
+
+
+def assert_scheduler_guard(scheduler, what: str) -> None:
+    """Lock-order assertion for runtime-owned schedulers (no-op when the
+    scheduler is driven synchronously without a runtime)."""
+    if not sanitize_enabled():
+        return
+    assert_owned(getattr(scheduler, "guard_lock", None), what)

@@ -102,7 +102,15 @@ def cp_als_init(dims, rank, *, norm_x: float, tol: float = 1e-5,
 
 def _pinv(v):
     rtol = 10 * max(v.shape) * torch.finfo(v.dtype).eps
-    return torch.linalg.pinv(v, rtol=rtol)
+    try:
+        return torch.linalg.pinv(v, rtol=rtol)
+    except torch.linalg.LinAlgError:
+        # the SVD of a matrix with NaN/Inf entries does not converge: give
+        # NaN, as the JAX package's pinv does, so poisoned factors end in
+        # a non-finite fit (the service's guard) instead of an exception
+        if bool(torch.isfinite(v).all()):
+            raise
+        return torch.full_like(v, float("nan"))
 
 
 def sweep_mode_update(m_mat, grams, mode: int):

@@ -136,7 +136,11 @@ def launch_mttkrp_impl(idx_hi, idx_lo, vals, bases, factors, *,
         copy_id = torch.arange(n, device=partial.device) % copies
         out = torch.zeros((copies, out_rows, rank), dtype=dtype,
                           device=partial.device)
-        out.index_put_((copy_id, seg_tgt), seg_sums, accumulate=True)
+        # index_add_ over the flattened copies: on the CPU it adds in a
+        # fixed order, where index_put_(accumulate=True) splits the
+        # indices over threads and reorders the float additions run to run
+        out.view(copies * out_rows, rank).index_add_(
+            0, copy_id * out_rows + seg_tgt, seg_sums)
         return out.sum(dim=0)
     raise ValueError(f"unknown resolution {resolution!r}")
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -244,7 +245,18 @@ class StreamBuffers:
       the next copy may overwrite it.
 
     On the CPU the same ring is used unpinned, without streams or events.
+    ``pinned_bytes()`` is the pinned host memory the open rings of the
+    process hold, by their own count (the caching host allocator keeps
+    freed blocks, so its statistics do not show a ring's release).
     """
+
+    _pinned = 0
+    _pinned_lock = threading.Lock()
+
+    @classmethod
+    def pinned_bytes(cls) -> int:
+        """Pinned host bytes held by the open rings of this process."""
+        return cls._pinned
 
     def __init__(self, spec: ReservationSpec, queues: int, value_dtype,
                  device=DEFAULT_DEVICE):
@@ -276,6 +288,9 @@ class StreamBuffers:
             if cuda else None
         self._read = [torch.cuda.Event() for _ in range(self.queues)] \
             if cuda else None
+        if cuda:
+            with StreamBuffers._pinned_lock:
+                StreamBuffers._pinned += nbytes * self.queues
 
     @property
     def closed(self) -> bool:
@@ -349,6 +364,9 @@ class StreamBuffers:
         if self.copy_stream is not None:
             self.copy_stream.synchronize()
             torch.cuda.current_stream(self.device).synchronize()
+            with StreamBuffers._pinned_lock:
+                StreamBuffers._pinned -= \
+                    self.spec.bytes_per_launch * self.queues
         self._host = self._dev = self._host_views = self._dev_views = None
         return freed
 

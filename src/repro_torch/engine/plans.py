@@ -148,11 +148,13 @@ class InMemoryPlan:
 class StreamedPlan:
     """Out-of-memory plan: host-resident tensor, fixed device reservations.
 
-    The plan owns its ring (``buffers``): ``queues`` host and ``queues``
-    device buffer sets of one reservation each, allocated once here and
-    reused by every call.  ``chunks`` is the chunk source, by default the
-    tensor's ``LaunchChunks``, which pads one launch at a time into the
-    ring's host buffers.
+    The ring (``buffers``) is ``queues`` host and ``queues`` device buffer
+    sets of one reservation each, allocated once and reused by every call.
+    By default the plan allocates and owns it; a ring given as
+    ``buffers=`` (the service's pooled ring, shared by every plan of one
+    reservation shape) is used but not closed by this plan.  ``chunks`` is
+    the chunk source, by default the tensor's ``LaunchChunks``, which pads
+    one launch at a time into the ring's host buffers.
     """
 
     backend = "streamed"
@@ -161,7 +163,8 @@ class StreamedPlan:
                  reservation_nnz: int | None = None,
                  spec: ReservationSpec | None = None, chunks=None,
                  resolution: str = "auto", copies: int = DEFAULT_COPIES,
-                 kernel: str = "cuda", device=DEFAULT_DEVICE):
+                 kernel: str = "cuda", device=DEFAULT_DEVICE,
+                 buffers: StreamBuffers | None = None):
         validate_kernel(kernel)
         self.blco = blco
         self.dims = blco.dims
@@ -173,8 +176,10 @@ class StreamedPlan:
             else reservation_for(blco, reservation_nnz)
         self.chunks = chunks if chunks is not None \
             else LaunchChunks(blco, self.spec.nnz)
-        self.buffers: StreamBuffers | None = StreamBuffers(
-            self.spec, queues, blco.values.dtype, device=device)
+        self._owns_buffers = buffers is None
+        self.buffers: StreamBuffers | None = buffers if buffers is not None \
+            else StreamBuffers(self.spec, queues, blco.values.dtype,
+                               device=device)
         self._stats = EngineStats(backend=self.backend)
 
     def mttkrp(self, factors, mode: int, *, resolution: str | None = None,
@@ -206,9 +211,13 @@ class StreamedPlan:
         return self._stats
 
     def close(self) -> int:
+        """Release the ring (closing it only when this plan owns it);
+        returns the reservation bytes the plan held."""
         if self.buffers is None:
             return 0
-        freed = self.buffers.close()
+        freed = self.device_bytes()
+        if self._owns_buffers:
+            self.buffers.close()
         self.buffers = None
         self.chunks = None
         return freed

@@ -34,15 +34,17 @@ Sites and their fault kinds, and where the port probes them:
                      (StoreCorruptionError, permanent); every chunk read
                      of ``store.format.DiskChunkSource``
     plan.alloc       alloc (AllocationError -> the degradation ladder of
-                     ``engine.plan_for``) | kernel (KernelFailure, which
-                     propagates: the port has no fallback from the
+                     ``engine.plan_for`` and of the service's
+                     ``ServiceEngine.try_plan``) | kernel (KernelFailure,
+                     which propagates: the port has no fallback from the
                      kernel); ``LaunchCache.from_blco`` and the streamed
-                     rung of ``plan_for``
+                     rung of ``plan_for`` and of the service
     stream.h2d       transient (OSError on the host-to-device copy,
                      retried); every chunk of ``stream_mttkrp``
     runtime.quantum  exception | crash (WorkerCrashError, a
-                     BaseException) — sites of the service, not ported
-    factors.nan      nan — a site of the service, not ported
+                     BaseException); every quantum of the service's
+                     ``JobScheduler.step``
+    factors.nan      nan; every quantum of ``JobScheduler.step``
 """
 from __future__ import annotations
 

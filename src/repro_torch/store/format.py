@@ -363,18 +363,21 @@ class StoredBLCO:
 
     def chunk_into(self, i: int, bufs) -> int:
         """Copy launch ``i``'s rows of the hi, lo, vals and bases sections
-        into caller-owned numpy buffers of the reservation's shape, byte
-        for byte what ``chunk(i)`` gives, and return its nnz.  The rows are
-        padded in the file, so every byte of the buffers is overwritten
-        (no stale tail)."""
+        into caller-owned numpy buffers of the reservation's shape or a
+        longer one, byte for byte what ``chunk(i)`` gives followed by
+        zeros, and return its nnz.  The rows are padded in the file and a
+        longer buffer's tail is zeroed, so every byte of the buffers is
+        overwritten (no stale tail)."""
         *rows, n = self.chunk(i)
         r, n_modes = self.reservation_nnz, self.order
         for buf, row in zip(bufs, rows):
-            if buf.shape != row.shape or buf.dtype != row.dtype:
+            if buf.shape[0] < r or buf.shape[1:] != row.shape[1:] \
+                    or buf.dtype != row.dtype:
                 raise ValueError(f"buffer {buf.shape} {buf.dtype} does not "
                                  f"hold a reservation of {r} at order "
                                  f"{n_modes} ({self.value_dtype} values)")
-            np.copyto(buf, row)
+            np.copyto(buf[:r], row)
+            buf[r:] = 0
         return n
 
     def chunks(self, stats=None) -> DiskChunkSource:

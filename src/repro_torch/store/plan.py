@@ -20,8 +20,8 @@ import os
 
 from repro_torch.core.device import DEFAULT_DEVICE
 from repro_torch.core.mttkrp import DEFAULT_COPIES, validate_kernel
-from repro_torch.core.streaming import (EngineStats, StreamBuffers,
-                                        stream_mttkrp)
+from repro_torch.core.streaming import (EngineStats, ReservationSpec,
+                                        StreamBuffers, stream_mttkrp)
 from repro_torch.obs import trace as obs_trace
 
 from .format import StoredBLCO, open_blco, save_blco
@@ -32,10 +32,13 @@ class DiskStreamedPlan:
     reservations and streamed to the device.
 
     ``stored`` is a :class:`~repro_torch.store.format.StoredBLCO` or a path
-    to one.  The plan owns its ring (``buffers``), allocated once here on
-    ``device`` (the card by default) and reused by every call.
-    ``delete_on_close`` unlinks the file when the plan closes — the right
-    setting for an anonymous spill the plan itself created (:meth:`spill`).
+    to one.  ``spec`` is the reservation of the ring, by default the
+    store's; a larger one (the service's pooled shape) pads each chunk to
+    it.  The ring (``buffers``) is allocated once here on ``device`` (the
+    card by default) and reused by every call; a ring given as
+    ``buffers=`` is used but not closed by this plan.  ``delete_on_close``
+    unlinks the file when the plan closes — the right setting for an
+    anonymous spill the plan itself created (:meth:`spill`).
     """
 
     backend = "disk_streamed"
@@ -43,7 +46,9 @@ class DiskStreamedPlan:
     def __init__(self, stored: StoredBLCO | str | os.PathLike, *,
                  queues: int = 4, resolution: str = "auto",
                  copies: int = DEFAULT_COPIES, kernel: str = "cuda",
-                 delete_on_close: bool = False, device=DEFAULT_DEVICE):
+                 spec: ReservationSpec | None = None,
+                 delete_on_close: bool = False, device=DEFAULT_DEVICE,
+                 buffers: StreamBuffers | None = None):
         validate_kernel(kernel)
         if not isinstance(stored, StoredBLCO):
             stored = open_blco(os.fspath(stored))
@@ -53,10 +58,17 @@ class DiskStreamedPlan:
         self.resolution = resolution
         self.copies = copies
         self.kernel = kernel
-        self.spec = stored.spec
+        self.spec = spec if spec is not None else stored.spec
+        if self.spec.nnz < stored.reservation_nnz:
+            stored.close()
+            raise ValueError(f"reservation of {self.spec.nnz} slots cannot "
+                             f"hold the store's chunks of "
+                             f"{stored.reservation_nnz}")
         self.delete_on_close = delete_on_close
-        self.buffers: StreamBuffers | None = StreamBuffers(
-            self.spec, queues, stored.value_dtype, device=device)
+        self._owns_buffers = buffers is None
+        self.buffers: StreamBuffers | None = buffers if buffers is not None \
+            else StreamBuffers(self.spec, queues, stored.value_dtype,
+                               device=device)
         self._stats = EngineStats(backend=self.backend)
 
     @classmethod
@@ -104,11 +116,14 @@ class DiskStreamedPlan:
         return self._stats
 
     def close(self) -> int:
-        """Free the ring and close the store (unlinking it when the plan
-        owns it); returns the device bytes freed."""
+        """Release the ring (closing it only when this plan owns it) and
+        close the store (unlinking it when the plan owns it); returns the
+        reservation bytes the plan held."""
         if self.buffers is None:
             return 0
-        freed = self.buffers.close()
+        freed = self.device_bytes()
+        if self._owns_buffers:
+            self.buffers.close()
         self.buffers = None
         path = self.stored.path
         self.stored.close()
