@@ -99,6 +99,21 @@ Phases, each of which exits non-zero when it fails:
    on Uber at full size; per-sweep seconds per regime, the Prometheus
    exposition and the SLO report; ``build/service/`` is deleted at the
    end;
+[sharded] the MTTKRP sharded over a ``torch.distributed`` mesh
+   (``plan_for(backend="auto", mesh=...)``, K1/K2 on each rank's shard,
+   one ``all_reduce`` over the data axis and one ``all_gather`` over the
+   model axis per call): both tensors on an NCCL group of one rank, mesh
+   (1, 1), every mode held against the in-memory fused output, five
+   CP-ALS sweeps against the in-memory fits, launches = modes x calls,
+   device bytes against the rise of ``memory_allocated``, ms per mode
+   beside the in-memory call and the collectives alone; then NELL-2 on a
+   gloo group of two worker processes on the one card (NCCL refuses two
+   ranks on one GPU; ``chip_smoke.py --sharded-worker RANK``), each
+   building only its own shard from ``[disk]``'s store, on the meshes
+   (2, 1) and (1, 2): every mode against the parent's in-memory output,
+   two sweeps with factors bitwise equal across the ranks, ms per mode
+   and collective ms per rank, launches reported by each worker and
+   checked by the parent;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -1606,7 +1621,7 @@ def fused_launches(run, calls_per_mode, chunks=1) -> dict:
     return want
 
 
-def counted(fn, want, what) -> dict:
+def counted(fn, want, what, tag="[service]") -> dict:
     """Run ``fn``; its K1/K2 launches (counted just before and just after)
     must equal ``want``; returns them."""
     from repro_torch.kernels import launch_counts
@@ -1614,9 +1629,9 @@ def counted(fn, want, what) -> dict:
     fn()
     took = {k: launch_counts[k] - before[k] for k in KERNELS}
     if took != {k: want.get(k, 0) for k in KERNELS}:
-        raise AssertionError(f"[service] {what} launched {took}, expected "
+        raise AssertionError(f"{tag} {what} launched {took}, expected "
                              f"{want}")
-    say(f"[service] {what}: K1/K2 launches {took} (sweeps x modes x "
+    say(f"{tag} {what}: K1/K2 launches {took} (sweeps x modes x "
         f"chunks)")
     return took
 
@@ -1642,11 +1657,11 @@ def solo_fits(run, seed, sweeps, norm_x, dev) -> list:
     return state.fits
 
 
-def check_fits(what, got, want, tol=FIT_TOL) -> float:
+def check_fits(what, got, want, tol=FIT_TOL, tag="[service]") -> float:
     diff = max(abs(a - b) for a, b in zip(got, want))
     if len(got) != len(want) or not all(math.isfinite(f) for f in got) \
             or diff > tol:
-        raise AssertionError(f"[service] {what}: fits {got} vs {want}")
+        raise AssertionError(f"{tag} {what}: fits {got} vs {want}")
     return diff
 
 
@@ -1992,6 +2007,303 @@ def service_phase(runs, dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- [sharded]
+SHARDED_DIR = os.path.join(ROOT, "build", "sharded")
+# the gloo world-2 meshes (data, model) on the one card, and the sweeps
+# each worker runs on each
+SHARDED_MESHES = ((2, 1), (1, 2))
+SHARDED_W2_SWEEPS = 2
+SHARDED_W2_TENSOR = "nell-2"
+# seconds the parent waits for both workers (each starts torch on the
+# card, reads the 2 GB store and runs 18 calls per mesh: under 20 s)
+SHARDED_W2_TIMEOUT = 240
+
+
+def collective_ms(mesh, rows, width, dev) -> float:
+    """Median ms of the sharded path's two collectives alone (``all_reduce``
+    over the data axis, ``all_gather`` over the model axis) on an (rows,
+    width) f32 block, by CUDA events."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import axis_size
+    x = torch.zeros((rows, width), device=dev)
+    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, "model"))]
+
+    def both():
+        dist.all_reduce(x, group=mesh.get_group("data"))
+        dist.all_gather(parts, x, group=mesh.get_group("model"))
+
+    return float(np.median(event_times(both, MEDIAN_OF)))
+
+
+def sharded_world1(run, mesh, dev) -> dict:
+    """One tensor through ``plan_for(auto, mesh=(1, 1))`` on an NCCL group
+    of one rank: every mode against the in-memory fused output, ``SWEEPS``
+    CP-ALS sweeps against the in-memory fits, the launches counted, then
+    ms per mode beside the in-memory call and the collectives alone.
+    Returns the counted launches."""
+    import torch
+    from repro_torch.core import cp_als_init, cp_als_step
+    from repro_torch.engine import plan_for
+    name, dims, fs = run["name"], run["dims"], run["factors"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    plan = plan_for(run["blco"], torch.cuda.mem_get_info()[0], rank=RANK,
+                    mesh=mesh, kernel="cuda", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated() - before
+    if plan.backend != "sharded":
+        raise AssertionError(f"{name}: plan_for(auto, mesh) picked "
+                             f"{plan.backend}")
+    say(f"[sharded] {name}: plan_for(auto, mesh (1, 1), NCCL world 1) -> "
+        f"{plan.backend} in {build_s:.2f} s; sharded_bytes "
+        f"{plan.device_bytes()} B ({plan.device_bytes() / 1e9:.4f} GB), "
+        f"memory_allocated rise {rise} B, h2d_bytes "
+        f"{plan.stats().h2d_bytes} B; in-memory launch cache "
+        f"{run['plan'].device_bytes()} B")
+
+    def body():
+        for (mode, d, variant, _), (fused_out, _) in zip(run["modes"],
+                                                         run["outs"]):
+            out = plan.mttkrp(fs, mode)
+            if out.shape != (d, RANK) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} mode {mode}: bad sharded "
+                                     f"output")
+            rel, fro, diff = check_err(f"{name} mode {mode}: sharded vs "
+                                       f"in-memory fused", out, fused_out)
+            say(f"[sharded] {name} mode {mode} -> {variant}: vs in-memory "
+                f"fused max-rel {rel:.3e}, Frobenius-rel {fro:.3e} (max abs "
+                f"{diff:.3e})")
+        state = cp_als_init(dims, RANK, norm_x=run["norm_x"], tol=0.0,
+                            seed=SEED, device=dev)
+        for sweep in range(SWEEPS):
+            t0 = time.perf_counter()
+            cp_als_step(plan, state)
+            torch.cuda.synchronize()
+            say(f"[sharded] {name} cp_als sharded sweep {sweep}: "
+                f"{time.perf_counter() - t0:.4f} s, fit "
+                f"{state.fits[-1]:.6f}")
+        diff = check_fits(f"{name} sharded world 1", state.fits, run["fits"],
+                          tag="[sharded]")
+        say(f"[sharded] {name}: fits {state.fits} (max diff from the "
+            f"in-memory fits {diff:.2e})")
+
+    took = counted(body, fused_launches(run, 1 + SWEEPS),
+                   f"{name} sharded world 1", tag="[sharded]")
+    for mode, d, variant, _ in run["modes"]:
+        ms = float(np.median(event_times(lambda: plan.mttkrp(fs, mode),
+                                         MEDIAN_OF)))
+        mem_ms = float(np.median(event_times(
+            lambda: run["plan"].mttkrp(fs, mode), MEDIAN_OF)))
+        coll = collective_ms(mesh, d, RANK, dev)
+        # one model rank's column block on a (1, 2) mesh: half of each
+        # warp's 32 lanes have no column
+        half = [f[:, :RANK // 2].contiguous() for f in fs]
+        half_ms = float(np.median(event_times(
+            lambda: run["plan"].mttkrp(half, mode), MEDIAN_OF)))
+        say(f"[sharded] {name} mode {mode} ({variant}): sharded "
+            f"{ms:.4f} ms, in memory {mem_ms:.4f} ms, sharded / in memory "
+            f"{ms / mem_ms:.3f}; collectives alone {coll:.4f} ms "
+            f"({coll / ms:.3f} of the sharded call); in memory at R = "
+            f"{RANK // 2} {half_ms:.4f} ms ({half_ms / mem_ms:.3f} of R = "
+            f"{RANK})")
+    say(f"[sharded] {name}: EngineStats "
+        f"{json.dumps(plan.stats().snapshot())}")
+    plan.close()
+    return took
+
+
+def sharded_world2(run, dev) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU),
+    each a worker process (``chip_smoke.py --sharded-worker RANK``) that
+    opens ``[disk]``'s store of ``run`` and builds only its own shard, on
+    the meshes ``SHARDED_MESHES``; the factors and the in-memory fused
+    outputs are handed over as files under ``build/sharded/``.  Checks the
+    workers' exits, their factors bitwise across ranks and their launches;
+    returns the launches both made."""
+    name, dims = run["name"], run["dims"]
+    factors, outs = [], []
+    for m, f in enumerate(run["factors"]):
+        factors.append(os.path.join(SHARDED_DIR, f"factor{m}.npy"))
+        np.save(factors[-1], f.cpu().numpy())
+    for mode, (fused_out, _) in enumerate(run["outs"]):
+        outs.append(os.path.join(SHARDED_DIR, f"out{mode}.npy"))
+        np.save(outs[-1], fused_out.cpu().numpy())
+    cfg = {"store": run["disk_plan"].stored.path, "dims": list(dims),
+           "norm_x": run["norm_x"], "fits": run["fits"],
+           "factors": factors, "outs": outs,
+           "variants": [v for _, _, v, _ in run["modes"]]}
+    with open(os.path.join(SHARDED_DIR, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    logs = [os.path.join(SHARDED_DIR, f"worker{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--sharded-worker", str(r)], stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + SHARDED_W2_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for path in logs:
+            if os.path.isfile(path):
+                with open(path) as f:
+                    for line in f.read().splitlines():
+                        say(line)
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"[sharded] world-2 workers exited {codes}")
+    took = {}
+    reports = []
+    for r in range(2):
+        with open(os.path.join(SHARDED_DIR, f"report{r}.json")) as f:
+            reports.append(json.load(f))
+        add_launches(took, reports[-1]["launches"])
+    for shape in SHARDED_MESHES:
+        tag = f"{shape[0]}x{shape[1]}"
+        for m in range(len(dims)):
+            a, b = (np.load(os.path.join(SHARDED_DIR,
+                                         f"{tag}_factor{m}_r{r}.npy"))
+                    for r in range(2))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"[sharded] mesh {shape}: factor {m} "
+                                     f"differs between the ranks")
+    per_rank = fused_launches(run, len(SHARDED_MESHES)
+                              * (1 + SHARDED_W2_SWEEPS))
+    want = {k: 2 * n for k, n in per_rank.items()}
+    if took != {k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"[sharded] world-2 workers launched {took}, "
+                             f"expected {want}")
+    say(f"[sharded] {name} gloo world 2: both workers exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s; factors bitwise equal across "
+        f"the ranks on {list(SHARDED_MESHES)}; K1/K2 launches {took} "
+        f"(2 ranks x meshes x modes x (1 + {SHARDED_W2_SWEEPS}) calls)")
+    return took
+
+
+def sharded_worker(rank: int) -> int:
+    """One rank of ``sharded_world2``: returns 0 when every check held."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import cp_als_init, cp_als_step
+    from repro_torch.dist import make_mesh
+    from repro_torch.engine import plan_for
+    from repro_torch.kernels import launch_counts
+    from repro_torch.store import open_blco
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with open(os.path.join(SHARDED_DIR, "config.json")) as f:
+        cfg = json.load(f)
+    dims = tuple(cfg["dims"])
+    t0 = time.perf_counter()
+    with open_blco(cfg["store"]) as stored:
+        b = stored.to_blco()
+    load_s = time.perf_counter() - t0
+    fs = [torch.from_numpy(np.load(p)).to(dev) for p in cfg["factors"]]
+    wants = [torch.from_numpy(np.load(p)).to(dev) for p in cfg["outs"]]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(SHARDED_DIR, 'store2')}",
+        rank=rank, world_size=2)
+    pre = f"[sharded] rank {rank}:"
+    say(f"{pre} open_blco(...).to_blco() {load_s:.2f} s, nnz {b.nnz}")
+    took = {k: 0 for k in KERNELS}
+    try:
+        for shape in SHARDED_MESHES:
+            mesh = make_mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            t0 = time.perf_counter()
+            plan = plan_for(b, torch.cuda.mem_get_info()[0], rank=RANK,
+                            mesh=mesh, kernel="cuda", device=dev)
+            torch.cuda.synchronize()
+            say(f"{pre} mesh {shape}: plan_for -> {plan.backend} in "
+                f"{time.perf_counter() - t0:.2f} s, this rank's shard "
+                f"{plan.stats().h2d_bytes} B of {plan.device_bytes()} B "
+                f"mesh-wide")
+            if plan.backend != "sharded":
+                raise AssertionError(f"plan_for picked {plan.backend}")
+            before = dict(launch_counts)
+            for mode, want in enumerate(wants):
+                out = plan.mttkrp(fs, mode)
+                rel, fro, _ = check_err(f"{pre} mesh {shape} mode {mode}",
+                                        out, want)
+                say(f"{pre} mesh {shape} mode {mode}: vs the parent's "
+                    f"in-memory fused output max-rel {rel:.3e}, "
+                    f"Frobenius-rel {fro:.3e}")
+            state = cp_als_init(dims, RANK, norm_x=cfg["norm_x"], tol=0.0,
+                                seed=SEED, device=dev)
+            for _ in range(SHARDED_W2_SWEEPS):
+                cp_als_step(plan, state)
+            diff = check_fits(f"mesh {shape}", state.fits,
+                              cfg["fits"][:SHARDED_W2_SWEEPS], tag=pre)
+            say(f"{pre} mesh {shape}: fits {state.fits} (max diff from "
+                f"the in-memory fits {diff:.2e})")
+            for k in KERNELS:
+                took[k] += launch_counts[k] - before[k]
+            for m, f in enumerate(state.factors):
+                np.save(os.path.join(SHARDED_DIR,
+                                     f"{tag}_factor{m}_r{rank}.npy"),
+                        f.cpu().numpy())
+            for mode, d in enumerate(dims):
+                ms = float(np.median(event_times(
+                    lambda: plan.mttkrp(fs, mode), MEDIAN_OF)))
+                coll = collective_ms(mesh, d, RANK // shape[1], dev)
+                say(f"{pre} mesh {shape} mode {mode} ({cfg['variants'][mode]}"
+                    f", R/M = {RANK // shape[1]}): sharded {ms:.4f} ms, "
+                    f"collectives alone {coll:.4f} ms ({coll / ms:.3f})")
+            plan.close()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(SHARDED_DIR, f"report{rank}.json"), "w") as f:
+        json.dump({"launches": took}, f)
+    return 0
+
+
+def sharded_phase(runs, dev) -> dict:
+    """The ``[sharded]`` phase: both tensors at NCCL world 1 in this
+    process, then NELL-2 at gloo world 2 in two workers; returns the K1/K2
+    launches of their main-path calls."""
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    os.makedirs(SHARDED_DIR)
+    launches = {}
+    try:
+        dist.init_process_group(
+            "nccl",
+            init_method=f"file://{os.path.join(SHARDED_DIR, 'store1')}",
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            for run in runs:
+                add_launches(launches, sharded_world1(run, mesh, dev))
+        finally:
+            dist.destroy_process_group()
+        for run in runs:
+            if run["name"] == SHARDED_W2_TENSOR:
+                add_launches(launches, sharded_world2(run, dev))
+    finally:
+        shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    say(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -2162,6 +2474,8 @@ def dispatch_phase(dev) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        return sharded_worker(int(sys.argv[2]))
     # the phases path allocates and frees tens of GB of (T, R) tensors of
     # several sizes per call; growable segments keep the cache from
     # fragmenting (read when the allocator starts, before any allocation)
@@ -2276,6 +2590,15 @@ def main() -> int:
                              f"{service_launches}")
     for v in FUSED:
         launches[v] += service_launches[v]
+    reset_launch_counts()
+    sharded_launches = sharded_phase(runs, dev)
+    say(f"[sharded] kernel launches of the sharded path: "
+        f"{sharded_launches}")
+    if not all(sharded_launches.get(v, 0) > 0 for v in FUSED):
+        raise AssertionError(f"a kernel of the sharded path never ran: "
+                             f"{sharded_launches}")
+    for v in FUSED:
+        launches[v] += sharded_launches[v]
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

@@ -1,6 +1,7 @@
 """Core library of the PyTorch port: BLCO format, mode-agnostic MTTKRP,
 launch cache, CP-ALS and out-of-memory streaming (the paper's in-memory
-and out-of-memory regimes), and the baselines it is compared against."""
+and out-of-memory regimes), the MTTKRP sharded over a mesh of
+``torch.distributed`` ranks, and the baselines it is compared against."""
 from .tensor import (SparseTensor, from_coo, load_tns, paper_like,
                      random_tensor, top_up_uniform)
 from .blco import BLCOTensor, build_blco, decode_coords, format_bytes
@@ -17,6 +18,7 @@ from .cp_als import (CPResult, CPState, as_mttkrp_fn, cp_als, cp_als_init,
 from .streaming import (EngineStats, LaunchChunks, OOMExecutor,
                         ReservationSpec, StreamBuffers, StreamStats,
                         reservation_for, stream_mttkrp)
+from .distributed import make_distributed_mttkrp, shard_launch_arrays
 
 __all__ = [
     "SparseTensor", "random_tensor", "top_up_uniform", "from_coo",
@@ -33,4 +35,5 @@ __all__ = [
     "cp_als_step", "init_factors", "reconstruct_dense",
     "EngineStats", "LaunchChunks", "OOMExecutor", "ReservationSpec",
     "StreamBuffers", "StreamStats", "reservation_for", "stream_mttkrp",
+    "make_distributed_mttkrp", "shard_launch_arrays",
 ]

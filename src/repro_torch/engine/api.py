@@ -12,8 +12,9 @@ The port of ``repro.engine.api``.  Every way to execute an MTTKRP is an
 
 An ``MTTKRPEngine`` turns a BLCO tensor + a device budget into a plan; the
 default engine (``repro_torch.engine.DefaultEngine`` over ``plan_for``)
-implements the paper's regime decision.  The port has three backends so
-far: ``InMemoryPlan``, ``StreamedPlan`` and ``DiskStreamedPlan``.
+implements the paper's regime decision over the reference's backends:
+``InMemoryPlan``, ``StreamedPlan``, ``DiskStreamedPlan``, ``ShardedPlan``
+and the baselines' ``BaselinePlan``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ from repro_torch.core.streaming import EngineStats
 class ExecutionPlan(Protocol):
     """A concrete, introspectable way to execute MTTKRPs for one tensor."""
 
-    backend: str          # "in_memory" | "streamed" | "disk_streamed"
+    backend: str          # "in_memory" | "streamed" | "disk_streamed" |
+                          # "sharded" | "coo" | "fcoo" | "csf"
 
     def mttkrp(self, factors, mode: int):
         """Mode-``mode`` MTTKRP of the planned tensor with ``factors``."""

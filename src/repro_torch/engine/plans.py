@@ -6,19 +6,23 @@
   StreamedPlan   host-resident BLCO streamed through a ring of fixed
                  reservations (the paper's out-of-memory regime): one
                  K1/K2 launch per chunk with ``kernel="cuda"``.
+  ShardedPlan    the nnz stream range-partitioned over the data axis of a
+                 mesh of ``torch.distributed`` ranks and the rank split
+                 over its model axis (``core.distributed``): one K1/K2
+                 launch per rank per call with ``kernel="cuda"``.
   BaselinePlan   COO / F-COO / CSF device formats from
                  ``core.baselines``, plain PyTorch, for parity with the
                  paper's comparisons under the same API.
 
-The disk tier's ``DiskStreamedPlan`` lives in ``repro_torch.store``.  The
-sharded plan of ``repro.engine.plans`` is a later slice of the port
-(ROADMAP.md, queue 1).  Each ``mttkrp`` call records a ``plan.mttkrp``
-span when tracing is on (``repro_torch.obs.trace``), and the plans feed
-the bandwidth ledger (``repro_torch.obs.ledger``) the same floats they
-add to their ``EngineStats``.
+The disk tier's ``DiskStreamedPlan`` lives in ``repro_torch.store``.  Each
+``mttkrp`` call records a ``plan.mttkrp`` span when tracing is on
+(``repro_torch.obs.trace``), and the plans feed the bandwidth ledger
+(``repro_torch.obs.ledger``) the same floats they add to their
+``EngineStats``.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -28,6 +32,8 @@ from repro_torch.core import baselines
 from repro_torch.core.blco import BLCOTensor, decode_coords
 from repro_torch.core.counters import dispatch_count
 from repro_torch.core.device import DEFAULT_DEVICE
+from repro_torch.core.distributed import (axis_size, make_distributed_mttkrp,
+                                          shard_slots, slot_bytes)
 from repro_torch.core.mttkrp import DEFAULT_COPIES, DeviceBLCO, validate_kernel
 from repro_torch.core.streaming import (EngineStats, LaunchChunks,
                                         ReservationSpec, StreamBuffers,
@@ -223,6 +229,75 @@ class StreamedPlan:
         return freed
 
 
+def sharded_bytes(blco: BLCOTensor, mesh, *, data_axis="data") -> int:
+    """Predicted mesh-wide device bytes of a ShardedPlan for ``blco``.
+
+    The nnz arrays are range-partitioned over the data axis but REPLICATED
+    across the remaining mesh axes, so the total resident footprint is the
+    padded arrays times that replication factor.
+    """
+    data_size = axis_size(mesh, data_axis)
+    per = shard_slots(blco.nnz, data_size)
+    padded = per * data_size
+    replicas = math.prod(mesh.shape) // data_size
+    return padded * slot_bytes(blco) * replicas
+
+
+class ShardedPlan:
+    """Mesh-sharded plan: nnz range-partitioned over the data axis, the
+    rank split over the model axis (``core.distributed``).
+
+    Every rank of the mesh builds the plan and calls ``mttkrp`` with the
+    same factors; each uploads only its own shard, and every rank gets the
+    same output.  ``device_bytes()`` and ``close()`` give the mesh-wide
+    bytes, as the reference's do; ``stats().h2d_bytes`` and the ledger's
+    upload record count this rank's shard, so their sum over the ranks is
+    the mesh-wide bytes.
+    """
+
+    backend = "sharded"
+
+    def __init__(self, blco: BLCOTensor, mesh, *, data_axis="data",
+                 model_axis="model", kernel: str = "cuda",
+                 device=DEFAULT_DEVICE):
+        validate_kernel(kernel)
+        self.dims = blco.dims
+        self.mesh = mesh
+        self.kernel = kernel
+        self._device_bytes = sharded_bytes(blco, mesh, data_axis=data_axis)
+        self._run = make_distributed_mttkrp(
+            blco, mesh, data_axis=data_axis, model_axis=model_axis,
+            kernel=kernel, device=device)
+        upload = shard_slots(blco.nnz, axis_size(mesh, data_axis)) \
+            * slot_bytes(blco)
+        self._stats = EngineStats(backend=self.backend)
+        self._stats.h2d_bytes += upload
+        if obs_ledger.LEDGER.enabled:
+            obs_ledger.record(obs_ledger.HOST_DEVICE, upload, 0.0,
+                              regime=self.backend)
+
+    def mttkrp(self, factors, mode: int):
+        if self._run is None:
+            raise RuntimeError("plan is closed")
+        with obs_trace.span("plan.mttkrp", "plan", backend=self.backend,
+                            mode=mode):
+            self._stats.mttkrp_calls += 1
+            self._stats.launches += 1
+            return self._run(factors, mode)
+
+    def device_bytes(self) -> int:
+        return 0 if self._run is None else self._device_bytes
+
+    def stats(self) -> EngineStats:
+        return self._stats
+
+    def close(self) -> int:
+        if self._run is None:
+            return 0
+        self._run = None          # drops the closure holding the shard
+        return self._device_bytes
+
+
 _BASELINE_BUILDERS = {
     "coo": (baselines.COOFormat, baselines.DeviceCOO),
     "fcoo": (baselines.FCOOFormat, baselines.DeviceFCOO),
@@ -289,4 +364,5 @@ class BaselinePlan:
         return freed
 
 
-__all__ = ["InMemoryPlan", "StreamedPlan", "BaselinePlan", "BASELINE_KINDS"]
+__all__ = ["InMemoryPlan", "StreamedPlan", "ShardedPlan", "BaselinePlan",
+           "BASELINE_KINDS", "sharded_bytes"]

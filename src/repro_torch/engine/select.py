@@ -1,7 +1,11 @@
 """``plan_for``: the paper's regime decision as a one-call auto-selector.
 
-The port of ``repro.engine.select``, for one device:
+The port of ``repro.engine.select``:
 
+    sharded        a mesh is passed in or set (``repro_torch.dist.set_mesh``)
+                   — a mesh of ``torch.distributed`` ranks: the nnz stream
+                   range-partitioned over its data axis, the rank split
+                   over its model axis (``core.distributed``);
     in_memory      the tensor's device footprint (hi + lo + vals + bases,
                    padded) plus the rank-R factor working set fits the
                    budget — the paper's in-memory regime;
@@ -25,8 +29,14 @@ JAX package retries a ``KernelFailure`` with its reference dataflow, the
 port lets it propagate, for ``kernel="cuda"`` and ``"torch"`` alike — no
 fallback hides a kernel that did not build or launch.
 
-The sharded backend of ``repro.engine.select`` is a later slice of the
-port: asking for it by name raises ``NotImplementedError``.
+The sharded backend checks its mesh-wide need (the shards times their
+replicas over the model axis, plus the factors) against the budget before
+any upload.  Where the reference refuses every kernel but its reference
+dataflow (``"xla"``) on this backend, the port takes both of its kernels:
+``"torch"``, the counterpart of ``"xla"``, and ``"cuda"``, which runs K1/K2
+on each rank's shard.  Both compute the function of the reference's
+per-shard dataflow; the port never runs its plain version on the card's
+main path.
 
 ``DefaultEngine`` wraps the same decision behind the ``MTTKRPEngine``
 protocol for callers that hold an engine rather than call ``plan_for``.
@@ -43,24 +53,22 @@ from repro_torch.core.blco import BLCOTensor, format_bytes
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.mttkrp import DEFAULT_COPIES, validate_kernel
 from repro_torch.core.streaming import reservation_for
+from repro_torch.dist.context import get_mesh
 from repro_torch.faults import inject as faults
 from repro_torch.obs import trace as obs_trace
 from repro_torch.store import DiskStreamedPlan
 
 from .api import factor_bytes, in_memory_bytes
-from .plans import BASELINE_KINDS, BaselinePlan, InMemoryPlan, StreamedPlan
+from .plans import (BASELINE_KINDS, BaselinePlan, InMemoryPlan, ShardedPlan,
+                    StreamedPlan, sharded_bytes)
 
-# backends of the JAX package that the port has not reached yet, with the
-# ROADMAP.md queue-1 item that ports each
-UNPORTED_BACKENDS = {
-    "sharded": "queue 1 item 10 (sharded MTTKRP)",
-}
-AUTO_BACKENDS = ("auto", "in_memory", "streamed", "disk_streamed") \
-    + tuple(UNPORTED_BACKENDS) + BASELINE_KINDS
+AUTO_BACKENDS = ("auto", "in_memory", "streamed", "disk_streamed",
+                 "sharded") + BASELINE_KINDS
 
 
 def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
-             dtype=torch.float32, backend: str = "auto", queues: int = 4,
+             dtype=torch.float32, backend: str = "auto", mesh=None,
+             queues: int = 4,
              reservation_nnz: int | None = None, resolution: str = "auto",
              copies: int = DEFAULT_COPIES, kernel: str = "cuda",
              device=DEFAULT_DEVICE, host_budget_bytes: int | None = None,
@@ -71,10 +79,16 @@ def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
     ``tensor`` (the original SparseTensor) is only consulted for baseline
     backends; without it the coordinates are decoded from the BLCO copy.
 
+    ``mesh`` (a ``DeviceMesh`` from ``repro_torch.dist.make_mesh``; the
+    process-wide one of ``repro_torch.dist.get_mesh()`` when None) routes
+    ``backend="auto"`` to the sharded backend, which ``backend="sharded"``
+    names and which needs a mesh.
+
     ``kernel`` selects the compute path: ``"cuda"`` (the fused kernel: one
-    launch per call in memory, one per chunk streamed) or ``"torch"`` (the
-    plain reference dataflow, and the only kernel of the baseline
-    backends, which raise ``ValueError`` for any other).  ``queues`` and
+    launch per call in memory and per rank sharded, one per chunk
+    streamed) or ``"torch"`` (the plain reference dataflow, and the only
+    kernel of the baseline backends, which raise ``ValueError`` for any
+    other).  ``queues`` and
     ``reservation_nnz`` shape the streamed regimes' ring.  ``device``
     defaults to the card; ``device="cpu"`` runs the plain versions on the
     host.
@@ -96,7 +110,8 @@ def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
                         requested=backend) as sp:
         plan = _plan_for_impl(
             blco, device_budget_bytes, rank=rank, dtype=dtype,
-            backend=backend, queues=queues, reservation_nnz=reservation_nnz,
+            backend=backend, mesh=mesh, queues=queues,
+            reservation_nnz=reservation_nnz,
             resolution=resolution, copies=copies, kernel=kernel,
             device=device, host_budget_bytes=host_budget_bytes,
             store_path=store_path, tensor=tensor)
@@ -105,7 +120,7 @@ def plan_for(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
 
 
 def _plan_for_impl(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
-                   dtype, backend: str, queues: int,
+                   dtype, backend: str, mesh, queues: int,
                    reservation_nnz: int | None, resolution: str, copies: int,
                    kernel: str, device, host_budget_bytes: int | None,
                    store_path: str | None, tensor):
@@ -121,11 +136,19 @@ def _plan_for_impl(blco: BLCOTensor, device_budget_bytes: int, *, rank: int,
         return BaselinePlan.from_tensor(tensor, backend, device=device) \
             if tensor is not None \
             else BaselinePlan.from_blco(blco, backend, device=device)
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to PyTorch yet; "
-            f"ROADMAP.md {UNPORTED_BACKENDS[backend]}")
     working = factor_bytes(blco.dims, rank, dtype)
+    mesh = mesh if mesh is not None else get_mesh()
+    if backend == "sharded" or (backend == "auto" and mesh is not None):
+        if mesh is None:
+            raise ValueError("backend='sharded' requires an active mesh "
+                             "(repro_torch.dist.set_mesh) or mesh=...")
+        need = sharded_bytes(blco, mesh) + working
+        if need > device_budget_bytes:
+            raise ValueError(
+                f"sharded plan needs {need} B across the mesh "
+                f"(tensor shards x replicas + factors) but the device "
+                f"budget is {device_budget_bytes} B")
+        return ShardedPlan(blco, mesh, kernel=kernel, device=device)
     demotions: list[str] = []
 
     def _done(plan):
@@ -220,11 +243,12 @@ def _note_demotion(demotions: list, what: str, exc: BaseException) -> None:
 class DefaultEngine:
     """MTTKRPEngine over ``plan_for`` with fixed streaming configuration."""
 
-    def __init__(self, *, queues: int = 4, backend: str = "auto",
+    def __init__(self, *, queues: int = 4, mesh=None, backend: str = "auto",
                  reservation_nnz: int | None = None, kernel: str = "cuda",
                  device=DEFAULT_DEVICE,
                  host_budget_bytes: int | None = None):
         self.queues = queues
+        self.mesh = mesh
         self.backend = backend
         self.reservation_nnz = reservation_nnz
         self.kernel = kernel
@@ -234,7 +258,8 @@ class DefaultEngine:
     def plan(self, blco: BLCOTensor, *, device_budget_bytes: int, rank: int,
              dtype=torch.float32):
         return plan_for(blco, device_budget_bytes, rank=rank, dtype=dtype,
-                        backend=self.backend, queues=self.queues,
+                        backend=self.backend, mesh=self.mesh,
+                        queues=self.queues,
                         reservation_nnz=self.reservation_nnz,
                         kernel=self.kernel, device=self.device,
                         host_budget_bytes=self.host_budget_bytes)

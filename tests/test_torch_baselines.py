@@ -223,7 +223,7 @@ def test_other_kernels_refused_and_sharded_unported():
         with pytest.raises(ValueError, match="use kernel='torch'"):
             plan_for(pb, BUDGET, rank=RANK, backend=kind, kernel="cuda",
                      device="cpu", tensor=pt)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="requires an active mesh"):
         plan_for(pb, BUDGET, rank=RANK, backend="sharded", kernel="torch",
                  device="cpu")
     with pytest.raises(ValueError, match="unknown baseline kind"):

@@ -5,12 +5,14 @@ import pytest
 pytest.importorskip("jax")
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro import core as rcore  # noqa: E402
 from repro import engine as rengine  # noqa: E402
 from repro_torch import core  # noqa: E402
-from repro_torch.engine import (AUTO_BACKENDS, UNPORTED_BACKENDS,  # noqa: E402
-                                ExecutionPlan, InMemoryPlan, factor_bytes,
+from repro_torch.dist import make_mesh  # noqa: E402
+from repro_torch.engine import (AUTO_BACKENDS, ExecutionPlan,  # noqa: E402
+                                InMemoryPlan, ShardedPlan, factor_bytes,
                                 in_memory_bytes, plan_for)
 
 BUDGET = 1 << 30
@@ -96,12 +98,20 @@ def test_stats_snapshot_has_reference_scalar_keys():
     assert s.mttkrp_calls == 1 and s.device_time_s >= s.dispatch_time_s > 0
 
 
-def test_unported_and_unknown_backends_raise():
+def test_unported_and_unknown_backends_raise(tmp_path):
+    """Every backend of the reference is ported (the sharded one builds on
+    a world-1 gloo mesh); unknown names and kernels raise."""
     _, port = _blcos()
-    assert set(AUTO_BACKENDS) == set(rengine.AUTO_BACKENDS)
-    for backend in UNPORTED_BACKENDS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plan_for(port, BUDGET, rank=6, backend=backend, device="cpu")
+    assert AUTO_BACKENDS == rengine.AUTO_BACKENDS
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        plan = plan_for(port, BUDGET, rank=6, backend="sharded",
+                        mesh=make_mesh((1, 1), device="cpu"), device="cpu")
+        assert isinstance(plan, ShardedPlan) and plan.backend == "sharded"
+        assert plan.mttkrp(_factors(port.dims), 0).shape == (port.dims[0], 6)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         plan_for(port, BUDGET, rank=6, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
