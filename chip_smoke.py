@@ -114,6 +114,20 @@ Phases, each of which exits non-zero when it fails:
    two sweeps with factors bitwise equal across the ranks, ms per mode
    and collective ms per rank, launches reported by each worker and
    checked by the parent;
+[analysis] the port's analysis tier on the card, over what the earlier
+   phases built: the AST lint passes over ``src/repro_torch/`` and this
+   script against ``src/repro_torch/analysis/lint_baseline.json`` (no
+   finding outside it, no stale entry); ``prove_encoding`` and
+   ``verify_layout`` for NELL-2's and Uber's BLCOs and their ``[stream]``
+   rebuilds (no finding; fields and shifts printed, NELL-2 mode 2's
+   straddling field among them); ``conflict_report`` for every (tensor,
+   mode), and K4 launched on the launch cache's flat stream at the
+   report's tile, its runs per launch (``seg_tgt >= 0``) equal to the
+   report's segments + padding segments; and ``run_trace_tier`` with the
+   registered hot paths over both tensors' launch caches at full width,
+   under the op recorder and ``torch.cuda.set_sync_debug_mode("error")``: no
+   finding outside an inline disable.  K4's launches and the audit's
+   K1/K2 launches are counted;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -995,6 +1009,7 @@ def uniform_timing(dev) -> None:
     cache = LaunchCache.from_blco(b, device=dev)
     hi, lo, vals, bases = cache.flat()
     fs = init_factors(dims, RANK, seed=SEED, device=dev)
+    torch.cuda.synchronize()
     say(f"[uniform] {name}: dims {dims} nnz {b.nnz}, T {hi.shape[0]}, "
         f"host generation + build_blco + upload "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2304,6 +2319,164 @@ def sharded_phase(runs, dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ [analysis]
+def lint_check() -> None:
+    """The AST tier over the port and this script against the port's
+    baseline: no finding outside it and no stale entry."""
+    from repro_torch.analysis import BASELINE_PATH, Baseline, lint_paths
+    t0 = time.perf_counter()
+    findings = lint_paths([os.path.join(ROOT, "src", "repro_torch"),
+                           os.path.abspath(__file__)], root=ROOT)
+    baseline = Baseline.load(BASELINE_PATH)
+    loose = [f.render() for f in findings if not baseline.suppresses(f)]
+    stale = baseline.stale_entries(findings)
+    say(f"[analysis] lint: {len(findings)} findings, "
+        f"{len(findings) - len(loose)} in the baseline of "
+        f"{len(baseline.entries)} entries, {len(loose)} outside it, "
+        f"{len(stale)} stale; {time.perf_counter() - t0:.2f} s")
+    if loose or stale:
+        raise AssertionError(f"[analysis] lint: {loose} outside the "
+                             f"baseline, stale {stale}")
+
+
+def encoding_check(runs) -> None:
+    """``prove_encoding`` for every BLCO the smoke built (the main path's
+    and ``[stream]``'s rebuilds), and ``verify_layout`` of each one's own
+    layout: no finding, and the proven fields are the BLCO's."""
+    from repro_torch.analysis.trace import prove_encoding, verify_layout
+    for run in runs:
+        for tag, b in (("main", run["blco"]),
+                       (f"max_nnz_per_block={STREAM[run['name']][0]}",
+                        run["stream_blco"])):
+            t0 = time.perf_counter()
+            symbol = f"encoding[{run['name']} {tag}]"
+            proof, found = prove_encoding(b.dims, target_bits=64,
+                                          symbol=symbol)
+            found += verify_layout(b.dims, b.spec, b.re, symbol=symbol)
+            if found or proof is None or \
+                    (proof.field_bits, proof.field_shift) != \
+                    (b.re.field_bits, b.re.field_shift):
+                raise AssertionError(f"[analysis] {symbol}: "
+                                     f"{[f.message for f in found]}")
+            straddle = [m for m, (w, s) in enumerate(zip(
+                proof.field_bits, proof.field_shift)) if s < 32 < s + w]
+            say(f"[analysis] {symbol}: proven in "
+                f"{time.perf_counter() - t0:.3f} s, 0 findings; fields "
+                f"{proof.field_bits} shifts {proof.field_shift} (stored "
+                f"{proof.stored_bits} of 64 bits), block bits "
+                f"{proof.block_bits}, modes straddling the word pair "
+                f"{straddle}, max coordinates {proof.max_coord}")
+
+
+def conflict_check(runs) -> dict:
+    """``conflict_report`` for every (tensor, mode) of the main path, and
+    K4 launched on the launch cache's flat stream at the report's tile:
+    its runs per launch must equal the report's segments + padding
+    segments exactly.  Returns K4's launches."""
+    import torch
+    from repro_torch.analysis.trace import (conflict_report, k4_runs,
+                                            report_runs)
+    from repro_torch.kernels import launch_counts
+    took = {}
+    for run in runs:
+        cache = run["plan"].resident.cache
+        for mode, d, _, _ in run["modes"]:
+            t0 = time.perf_counter()
+            report = conflict_report(run["blco"], mode)
+            secs = time.perf_counter() - t0
+            if report["reservation"] != cache.reservation:
+                raise AssertionError(f"[analysis] {run['name']} mode {mode}:"
+                                     f" the report's reservation "
+                                     f"{report['reservation']}, the cache's "
+                                     f"{cache.reservation}")
+            want = report_runs(report)
+            before = dict(launch_counts)
+            t0 = time.perf_counter()
+            got = k4_runs(cache, run["factors"], mode, tile=report["tile"])
+            torch.cuda.synchronize()
+            k4_s = time.perf_counter() - t0
+            add_launches(took, {k: launch_counts[k] - before[k]
+                                for k in KERNELS})
+            pad = sum(l["padding_segments"] for l in report["launches"])
+            say(f"[analysis] {run['name']} mode {mode} (I={d}): report "
+                f"{secs:.2f} s, tile {report['tile']}, reservation "
+                f"{report['reservation']} x {len(report['launches'])} "
+                f"launches, segments {report['total_segments']} + padding "
+                f"segments {pad}, max writers per row "
+                f"{report['max_writers_per_row_per_step']}, unique sound "
+                f"{report['unique_indices_sound']}; K4 runs per launch "
+                f"{got} ({k4_s:.2f} s)")
+            if got != want:
+                raise AssertionError(f"[analysis] {run['name']} mode {mode}:"
+                                     f" K4 wrote {got} runs per launch, the "
+                                     f"report counts {want}")
+            torch.cuda.empty_cache()
+    return took
+
+
+def hot_path_check(runs) -> dict:
+    """``run_trace_tier`` with the registered hot paths built over each
+    tensor's launch cache and factors at full width: the recorder and the
+    card's sync debug mode find nothing outside an inline disable.
+    Returns the kernel launches the paths made."""
+    import torch
+    from repro_torch.analysis.trace import (registered_hot_paths,
+                                            run_trace_tier)
+    from repro_torch.kernels import launch_counts
+    torch.cuda.empty_cache()
+    before = dict(launch_counts)
+    paths = []
+    for run in runs:
+        paths += registered_hot_paths(cache=run["plan"].resident.cache,
+                                      factors=run["factors"])
+    t0 = time.perf_counter()
+    found, bundle, m = run_trace_tier(hot_paths=paths)
+    secs = time.perf_counter() - t0
+    names = [r["name"] for r in runs]
+    for hp in bundle["hot_paths"]:
+        say(f"[analysis] hot path {hp['name']} on {hp['device']} "
+            f"({hp['dims']}): {hp['calls']} torch calls recorded, "
+            f"{hp['writes']} indexed writes, {hp['findings']} findings, "
+            f"refused under an inline disable {hp['suppressed']}; "
+            f"{hp['seconds']:.3f} s")
+    say(f"[analysis] run_trace_tier over {len(paths)} full-width paths of "
+        f"{names}: {len(found)} findings; {json.dumps(m.snapshot())}; "
+        f"{secs:.2f} s")
+    if found:
+        raise AssertionError(f"[analysis] trace tier: "
+                             f"{[f.render() for f in found]}")
+    return {k: launch_counts[k] - before[k] for k in KERNELS}
+
+
+def analysis_phase(runs) -> dict:
+    """The ``[analysis]`` phase; returns the kernel launches it made (K4
+    held against the reports, K1/K2 under the hot-path audit)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    lint_check()
+    encoding_check(runs)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    held = conflict_check(runs)
+    if dict(launch_counts) != {k: held.get(k, 0) for k in KERNELS} or \
+            held.get("segments", 0) != sum(len(r["modes"]) for r in runs):
+        raise AssertionError(f"[analysis] K4 launches {dict(launch_counts)}"
+                             f", expected one per (tensor, mode)")
+    reset_launch_counts()
+    audited = hot_path_check(runs)
+    if dict(launch_counts) != {k: audited.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"[analysis] the hot-path audit launched "
+                             f"{dict(launch_counts)}")
+    say(f"[analysis] kernel launches: K4 against the reports {held}; the "
+        f"hot-path audit {audited}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    add_launches(launches, held)
+    add_launches(launches, audited)
+    return launches
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -2599,6 +2772,13 @@ def main() -> int:
                              f"{sharded_launches}")
     for v in FUSED:
         launches[v] += sharded_launches[v]
+    analysis_launches = analysis_phase(runs)
+    if not all(analysis_launches.get(k, 0) > 0 for k in FUSED
+               + ("segments",)):
+        raise AssertionError(f"[analysis] a kernel of the phase never ran:"
+                             f" {analysis_launches}")
+    for k, n in analysis_launches.items():
+        launches[k] += n
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

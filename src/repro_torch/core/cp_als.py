@@ -100,7 +100,11 @@ def cp_als_init(dims, rank, *, norm_x: float, tol: float = 1e-5,
                    iteration=0, converged=False)
 
 
-def _pinv(v):
+# on the card torch.linalg.pinv reads cuSOLVER's status on the host (the
+# sync debug mode refuses it): one (R, R) solve per mode update, after the
+# plan has fenced its MTTKRP; a status-free pseudo-inverse would change
+# the reference's numerics
+def _pinv(v):  # repro-lint: disable=trace-host-callback
     rtol = 10 * max(v.shape) * torch.finfo(v.dtype).eps
     try:
         return torch.linalg.pinv(v, rtol=rtol)

@@ -33,13 +33,77 @@ from .blco import BLCOTensor
 from .device import DEFAULT_DEVICE, resolve_device
 from .mttkrp import _segment_compress, partial_and_target, validate_kernel
 
-def axis_size(mesh, axis: str) -> int:
-    """Ranks along the named ``axis`` of ``mesh`` (a ``DeviceMesh``, or
-    anything with its ``shape`` and ``mesh_dim_names``)."""
+
+def _axis_names(axis) -> tuple:
+    """``axis`` as a tuple of mesh axis names (one name, or a tuple)."""
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+def axis_size(mesh, axis) -> int:
+    """Ranks along ``axis`` of ``mesh`` (a ``DeviceMesh``, or anything with
+    its ``shape`` and ``mesh_dim_names``): one name, or a tuple of names
+    whose sizes multiply, as the reference's ``data_axis`` may be."""
     names = tuple(mesh.mesh_dim_names or ())
-    if axis not in names:
-        raise ValueError(f"mesh has no axis {axis!r}; its axes are {names}")
-    return int(mesh.shape[names.index(axis)])
+    axes = _axis_names(axis)
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"axis {axis!r} names an axis twice")
+    size = 1
+    for a in axes:
+        if a not in names:
+            raise ValueError(f"mesh has no axis {a!r}; its axes are "
+                             f"{names}")
+        size *= int(mesh.shape[names.index(a)])
+    return size
+
+
+#: where ``axis_group`` keeps a mesh's flattened groups: on the mesh
+_FLAT_GROUPS = "_repro_flat_groups"
+
+
+def axis_group(mesh, axis):
+    """``(process group, this rank's coordinate)`` along ``axis``.
+
+    One name is the mesh's own group and coordinate.  A tuple of names is
+    flattened row-major in the order listed (the first name varies
+    slowest), as the reference's ``P(data_axis)`` splits the leading dim:
+    ``("pod", "data")`` puts pod first.  Its groups are made with
+    ``dist.new_group`` once per mesh and tuple, every group by every rank
+    in the same order (a rank outside a group still takes part in making
+    it), and kept on the mesh until ``release_axis_groups`` destroys them
+    (``repro_torch.dist.set_mesh`` does so when it replaces the mesh).
+    """
+    axes = _axis_names(axis)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), mesh.get_local_rank(axes[0])
+    size = axis_size(mesh, axes)                    # checks the names
+    made = mesh.__dict__.setdefault(_FLAT_GROUPS, {})
+    if axes not in made:
+        names = tuple(mesh.mesh_dim_names)
+        flat = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in flat]
+        rows = mesh.mesh.permute(rest + flat).reshape(-1, size).tolist()
+        made[axes] = [(row, dist.new_group(row)) for row in rows]
+    me = dist.get_rank()
+    for row, group in made[axes]:
+        if me in row:
+            return group, row.index(me)
+    raise ValueError(f"rank {me} is not in the mesh")
+
+
+def release_axis_groups(mesh) -> int:
+    """Destroy the flattened groups ``axis_group`` made for ``mesh``;
+    returns how many this rank destroyed.  Every rank releases in the
+    same order.  After the default group is destroyed they are gone
+    already, and are only forgotten."""
+    made = mesh.__dict__.pop(_FLAT_GROUPS, {})
+    destroyed = 0
+    if dist.is_initialized():
+        for pairs in made.values():
+            for _, group in pairs:
+                if group != dist.GroupMember.NON_GROUP_MEMBER:
+                    dist.destroy_process_group(group)
+                    destroyed += 1
+    return destroyed
 
 
 def slot_bytes(blco: BLCOTensor) -> int:
@@ -103,8 +167,9 @@ def make_distributed_mttkrp(blco: BLCOTensor, mesh, *, data_axis="data",
     """Build ``run(factors, mode)``, the mode-n MTTKRP sharded over ``mesh``
     (a ``DeviceMesh`` from ``repro_torch.dist.make_mesh``).
 
-    The nnz stream is range-partitioned over ``data_axis`` and replicated
-    over ``model_axis``: this rank uploads the shard of its data coordinate
+    The nnz stream is range-partitioned over ``data_axis`` (one name, or a
+    tuple of names flattened row-major as ``axis_group`` says) and
+    replicated over ``model_axis``: this rank uploads the shard of its data coordinate
     once, to ``device``.  ``run`` takes the full (I_n, R) factors, which
     every rank holds, computes the column block of its model coordinate on
     its shard, sums the shards with one ``all_reduce`` over the data axis
@@ -117,11 +182,9 @@ def make_distributed_mttkrp(blco: BLCOTensor, mesh, *, data_axis="data",
     dev = resolve_device(device)
     data_size = axis_size(mesh, data_axis)
     model_size = axis_size(mesh, model_axis)
-    data_group = mesh.get_group(data_axis)
-    model_group = mesh.get_group(model_axis)
-    col = mesh.get_local_rank(model_axis)
-    row = shard_launch_arrays(blco, data_size,
-                              shard=mesh.get_local_rank(data_axis))
+    data_group, shard = axis_group(mesh, data_axis)
+    model_group, col = axis_group(mesh, model_axis)
+    row = shard_launch_arrays(blco, data_size, shard=shard)
     hi, lo, vals, bases = (torch.from_numpy(row[k]).to(dev)
                            for k in ("idx_hi", "idx_lo", "vals", "bases"))
     del row

@@ -301,7 +301,9 @@ class StreamBuffers:
         once its last copy has left them."""
         self._check_open()
         if self._copied is not None:
-            self._copied[k].synchronize()
+            # the host may refill set k only once its last copy has read
+            # it: the ring's one host wait, by design
+            self._copied[k].synchronize()  # repro-lint: disable=host-sync-in-hot-path
         return self._host_views[k]
 
     def upload(self, k: int):

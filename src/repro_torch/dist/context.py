@@ -11,8 +11,13 @@ _MESH = None
 
 
 def set_mesh(mesh) -> None:
-    """Install (or clear, with ``None``) the process-wide mesh."""
+    """Install (or clear, with ``None``) the process-wide mesh.  The mesh
+    it replaces loses the flattened-axis groups made for it
+    (``core.distributed.release_axis_groups``)."""
     global _MESH
+    if _MESH is not None and _MESH is not mesh:
+        from repro_torch.core.distributed import release_axis_groups
+        release_axis_groups(_MESH)
     _MESH = mesh
 
 

@@ -216,18 +216,29 @@ def _row_ptrs(gathered):
                                                for g in gathered))
 
 
+def segments_query(t: int, tile: int, rank: int, n_gathered: int, vals_dtype,
+                   rows_dtype, *, aligned: bool,
+                   device: int) -> tuple[SegmentsLayout, tuple]:
+    """K4's layout for a stream of ``t`` slots and the ``phases_occupancy``
+    key its launch asks under: (kernel, dtype pair, gathered row sets,
+    rank, stage rows, ring depth, device ordinal).  The stream's length
+    shapes the layout, never the key (``analysis.trace.cachekeys`` holds
+    it to that)."""
+    layout = segments_layout(t, tile, rank, n_gathered, vals_dtype.itemsize,
+                             rows_dtype.itemsize, aligned=aligned)
+    return layout, ("segments", DTYPE_PAIRS[(vals_dtype, rows_dtype)],
+                    n_gathered, rank, layout.rows, layout.stages, device)
+
+
 def segments_geometry(vals, tgt, gathered, *, tile: int) -> SegmentsGeometry:
     """The one-wave geometry of a K4 launch on these CUDA tensors."""
     gathered = tuple(gathered)
     t, rank = _check_rows(vals, tgt, gathered)
-    layout = segments_layout(
-        t, tile, rank, len(gathered), vals.element_size(),
-        gathered[0].element_size(),
-        aligned=all(x.data_ptr() % 16 == 0 for x in (vals, tgt, *gathered)))
-    sms, per_sm, smem = phases_occupancy(
-        "segments", DTYPE_PAIRS[(vals.dtype, gathered[0].dtype)],
-        len(gathered), rank, layout.rows, layout.stages,
-        device_index(vals.device))
+    layout, key = segments_query(
+        t, tile, rank, len(gathered), vals.dtype, gathered[0].dtype,
+        aligned=all(x.data_ptr() % 16 == 0 for x in (vals, tgt, *gathered)),
+        device=device_index(vals.device))
+    sms, per_sm, smem = phases_occupancy(*key)
     if smem != layout.smem:
         raise RuntimeError(f"K4's shared memory: {smem} B on the card, "
                            f"{layout.smem} B in segments_layout")

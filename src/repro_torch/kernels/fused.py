@@ -147,15 +147,24 @@ def _occupancy(variant: str, dtype_pair: int, n_modes: int, smem: int,
     return sms.value, per_sm.value, batch.value, lib.fused_mttkrp_threads()
 
 
+def occupancy_key(variant: str, vals_dtype, factor_dtype, n_modes: int,
+                  out_rows: int, rank: int, device: int) -> tuple:
+    """The ``_occupancy`` key a launch of ``variant`` asks under: (kernel,
+    dtype pair, order, shared memory, device ordinal).  No launch size
+    enters it (``analysis.trace.cachekeys`` holds it to that)."""
+    out_dtype = torch.promote_types(vals_dtype, factor_dtype)
+    smem = out_rows * rank * out_dtype.itemsize if variant == "stash" else 0
+    return (variant, DTYPE_PAIRS[(vals_dtype, factor_dtype)], n_modes, smem,
+            device)
+
+
 def kernel_geometry(variant: str, vals_dtype, factor_dtype, n_modes: int,
                     out_rows: int, rank: int, t: int,
                     device: torch.device) -> Geometry:
     """The one-wave geometry of a launch of ``variant`` on ``device``."""
-    out_dtype = torch.promote_types(vals_dtype, factor_dtype)
-    smem = out_rows * rank * out_dtype.itemsize if variant == "stash" else 0
-    sms, per_sm, batch, threads = _occupancy(
-        variant, DTYPE_PAIRS[(vals_dtype, factor_dtype)], n_modes, smem,
-        device_index(device))
+    sms, per_sm, batch, threads = _occupancy(*occupancy_key(
+        variant, vals_dtype, factor_dtype, n_modes, out_rows, rank,
+        device_index(device)))
     blocks, chunk = launch_geometry(t, sms, per_sm, threads)
     return Geometry(blocks, chunk, threads, sms, per_sm, batch)
 

@@ -290,10 +290,13 @@ class ServiceRuntime:
         if job is None or job.state != sched.RUNNING or job.cp is None:
             return
         if mid_sweep:
+            # the caller holds the lock; the re-entrant re-acquire makes
+            # that lexical for the read of the (restore-swapped) service
+            with self._lock:
+                device = self.service.engine.device
             job.cp = self._checkpointed_cp(job) or cp_als_init(
                 job.handle.dims, job.rank, norm_x=job.handle.norm_x,
-                tol=job.tol, seed=job.seed,
-                device=self.service.engine.device)
+                tol=job.tol, seed=job.seed, device=device)
             job.metrics.iterations = job.cp.iteration
             self.scheduler._publish(job, "rollback")
 
@@ -306,9 +309,10 @@ class ServiceRuntime:
         if not os.path.exists(path):
             return None
         from ..store.snapshot import _load_cp
+        with self._lock:                # held by the caller; made lexical
+            device = self.service.engine.device
         try:
-            return _load_cp(path, job.handle.dims, job.rank,
-                            device=self.service.engine.device)
+            return _load_cp(path, job.handle.dims, job.rank, device=device)
         except Exception:     # noqa: BLE001 — a damaged checkpoint (crash
             return None       # mid-write) degrades to the fresh-init path
 

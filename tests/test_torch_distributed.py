@@ -147,6 +147,46 @@ def test_sharded_bytes_match_reference(shape, dtype):
                                      + 4 * 4) * shape[1]
 
 
+# the probe of a tuple data axis: random_tensor((30, 20, 40), 500, seed=0)
+# keeps 496 distinct non-zeros, 124 slots on each of the 2 x 2 data ranks
+# of 24 B (order 3, f32): 11904 B mesh-wide
+TUPLE_MESH = ((2, 2, 1), ("pod", "data", "model"))
+TUPLE_AXIS = ("pod", "data")
+TUPLE_BYTES = 11904
+
+
+def _tuple_coo():
+    r = rcore.random_tensor((30, 20, 40), 500, seed=0)
+    return np.array(r.indices), np.array(r.values), tuple(r.dims)
+
+
+@pytest.mark.parametrize("data_axis", [("pod", "data"), ("data", "pod"),
+                                       ("pod",), "data"])
+def test_sharded_bytes_tuple_data_axis_match_reference(data_axis):
+    idx, vals, dims = _tuple_coo()
+    ref = rcore.build_blco(rcore.from_coo(idx, vals, dims))
+    port = core.build_blco(core.from_coo(idx, vals, dims))
+    shape, names = TUPLE_MESH
+    rmesh = types.SimpleNamespace(shape=dict(zip(names, shape)),
+                                  size=int(np.prod(shape)))
+    pmesh = types.SimpleNamespace(shape=shape, mesh_dim_names=names)
+    want = rengine.sharded_bytes(ref, rmesh, data_axis=data_axis)
+    assert sharded_bytes(port, pmesh, data_axis=data_axis) == want
+    if isinstance(data_axis, tuple) and len(data_axis) == 2:
+        assert want == TUPLE_BYTES
+    assert distributed.axis_size(pmesh, data_axis) == (
+        4 if isinstance(data_axis, tuple) and len(data_axis) == 2 else 2)
+
+
+def test_axis_size_refuses_unknown_and_repeated_names():
+    pmesh = types.SimpleNamespace(shape=(2, 2, 1),
+                                  mesh_dim_names=TUPLE_MESH[1])
+    with pytest.raises(ValueError, match="no axis 'rack'"):
+        distributed.axis_size(pmesh, ("pod", "rack"))
+    with pytest.raises(ValueError, match="twice"):
+        distributed.axis_size(pmesh, ("pod", "pod"))
+
+
 # ------------------------------------------------------------ world size 1
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("kernel", ["cuda", "torch"])
@@ -220,6 +260,40 @@ def test_world1_empty_tensor_gives_zeros_at_promoted_dtype(world1):
         assert out.dtype == torch.float64 and out.shape == (d, 4)
         assert not out.any()
     assert plan.device_bytes() == 0 and plan.stats().launches == 3
+
+
+def _group_count():
+    return len(dist.distributed_c10d._world.pg_map)
+
+
+def test_tuple_axis_groups_made_once_per_mesh(tmp_path):
+    """Re-planning with a tuple data axis reuses the flattened groups made
+    for the mesh: the count of process groups does not grow from one
+    ``ShardedPlan`` to the next, and ``set_mesh(None)`` destroys them."""
+    dims, nnz = CASES["order3"]
+    _, port = _blcos(dims, nnz)
+    factors = [torch.from_numpy(f) for f in _factors(dims)]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), TUPLE_MESH[1], device="cpu")
+        set_mesh(mesh)
+        before = _group_count()
+        outs, counts = [], []
+        for _ in range(2):
+            plan = ShardedPlan(port, mesh, data_axis=TUPLE_AXIS,
+                               kernel="torch", device="cpu")
+            outs.append(plan.mttkrp(factors, 0))
+            plan.close()
+            counts.append(_group_count())
+        assert counts == [before + 1, before + 1]
+        torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+        set_mesh(None)
+        assert _group_count() == before
+        assert distributed.release_axis_groups(mesh) == 0
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
 
 
 def test_mesh_context_routes_auto(world1):
@@ -484,3 +558,130 @@ def test_four_gloo_ranks_match_reference(tmp_path):
             assert sum(meta[key]["h2d"] for meta in metas) \
                 == ref_bytes[tag] == metas[0][key]["device_bytes"] \
                 == metas[0][key]["sharded_bytes"]
+
+
+_TUPLE_RANK_CODE = """
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import core
+from repro_torch.core import distributed
+from repro_torch.core.distributed import axis_group
+from repro_torch.dist import make_mesh
+from repro_torch.engine import ShardedPlan, sharded_bytes
+
+rank, store, out, cfg = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+    json.loads(sys.argv[4])
+dims, axis = tuple(cfg["dims"]), tuple(cfg["axis"])
+idx, vals = np.load(cfg["idx"]), np.load(cfg["vals"])
+factors = [torch.from_numpy(np.load(p)) for p in cfg["factors"]]
+b = core.build_blco(core.from_coo(idx, vals, dims), target_bits=10,
+                    max_nnz_per_block=64)
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=4)
+mesh = make_mesh(tuple(cfg["shape"]), tuple(cfg["names"]), device="cpu")
+group, shard = axis_group(mesh, axis)
+meta = {"shard": shard, "pod": mesh.get_local_rank("pod"),
+        "data": mesh.get_local_rank("data"),
+        "group_size": dist.get_world_size(group)}
+for kernel in ("cuda", "torch"):
+    plan = ShardedPlan(b, mesh, data_axis=axis, kernel=kernel, device="cpu")
+    for mode in range(len(dims)):
+        np.save(f"{out}/tuple_{kernel}_mode{mode}_r{rank}.npy",
+                plan.mttkrp(factors, mode).numpy())
+    meta[kernel] = {"h2d": plan.stats().h2d_bytes,
+                    "device_bytes": plan.device_bytes(),
+                    "sharded_bytes": sharded_bytes(b, mesh, data_axis=axis),
+                    "groups": len(dist.distributed_c10d._world.pg_map)}
+    plan.close()
+meta["released"] = distributed.release_axis_groups(mesh)
+json.dump(meta, open(f"{out}/tuple_meta_r{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+_TUPLE_REF_CODE = """
+import json, sys
+import numpy as np, jax
+from jax.sharding import PartitionSpec as P
+from repro import core
+from repro.core.distributed import make_distributed_mttkrp
+from repro.engine import sharded_bytes
+from repro.launch.mesh import make_test_mesh
+
+out, cfg = sys.argv[1], json.loads(sys.argv[2])
+dims, axis = tuple(cfg["dims"]), tuple(cfg["axis"])
+idx, vals = np.load(cfg["idx"]), np.load(cfg["vals"])
+b = core.build_blco(core.from_coo(idx, vals, dims), target_bits=10,
+                    max_nnz_per_block=64)
+mesh = make_test_mesh(tuple(cfg["shape"]), tuple(cfg["names"]))
+fs = [jax.device_put(np.load(p), jax.NamedSharding(mesh, P(None, "model")))
+      for p in cfg["factors"]]
+run = make_distributed_mttkrp(b, mesh, data_axis=axis)
+for mode in range(len(dims)):
+    np.save(f"{out}/tuple_ref_mode{mode}.npy", np.asarray(run(fs, mode)))
+json.dump(sharded_bytes(b, mesh, data_axis=axis),
+          open(f"{out}/tuple_meta_ref.json", "w"))
+"""
+
+
+def test_four_gloo_ranks_tuple_data_axis_match_reference(tmp_path):
+    """Four gloo ranks on a (2, 2, 1) mesh named (pod, data, model), the
+    nnz split over ``data_axis=("pod", "data")``: each rank holds the shard
+    of its row-major (pod, data) coordinate, its data group spans the
+    four ranks, every rank's outputs are bitwise equal and within 5e-4
+    of the reference's ``make_distributed_mttkrp`` on the same mesh of
+    four fake XLA devices; ``sharded_bytes`` is the reference's 11904 B,
+    and the ranks' uploads sum to it.  The second plan makes no new
+    group, and releasing the mesh destroys the one flattened group."""
+    idx, vals, dims = _tuple_coo()
+    factors = _factors(dims)
+    np.save(tmp_path / "idx.npy", idx)
+    np.save(tmp_path / "vals.npy", vals)
+    paths = []
+    for m, f in enumerate(factors):
+        paths.append(str(tmp_path / f"f{m}.npy"))
+        np.save(paths[-1], f)
+    shape, names = TUPLE_MESH
+    cfg = json.dumps({"dims": dims, "shape": shape, "names": names,
+                      "axis": TUPLE_AXIS, "idx": str(tmp_path / "idx.npy"),
+                      "vals": str(tmp_path / "vals.npy"),
+                      "factors": paths})
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env["OMP_NUM_THREADS"] = "1"
+    ref_env = dict(env)
+    ref_env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
+                            " --xla_force_host_platform_device_count=4")
+    store = str(tmp_path / "store")
+    results = _spawn([[sys.executable, "-c", textwrap.dedent(
+        _TUPLE_RANK_CODE), str(r), store, str(tmp_path), cfg]
+        for r in range(4)], env, PROC_TIMEOUT)
+    results += _spawn([[sys.executable, "-c", textwrap.dedent(
+        _TUPLE_REF_CODE), str(tmp_path), cfg]], ref_env, PROC_TIMEOUT)
+    for rc, err in results:
+        assert rc == 0, err[-4000:]
+
+    ref_bytes = json.loads((tmp_path / "tuple_meta_ref.json").read_text())
+    assert ref_bytes == TUPLE_BYTES
+    metas = [json.loads((tmp_path / f"tuple_meta_r{r}.json").read_text())
+             for r in range(4)]
+    assert sorted(m["shard"] for m in metas) == [0, 1, 2, 3]
+    for m in metas:
+        assert m["shard"] == 2 * m["pod"] + m["data"]
+        assert m["group_size"] == 4
+        # the second plan reuses the first one's flattened group
+        assert m["cuda"]["groups"] == m["torch"]["groups"]
+        assert m["released"] == 1
+    t = core.from_coo(idx, vals, dims)
+    for kernel in ("cuda", "torch"):
+        for mode in range(len(dims)):
+            outs = [np.load(tmp_path / f"tuple_{kernel}_mode{mode}_r{r}.npy")
+                    for r in range(4)]
+            for o in outs[1:]:
+                np.testing.assert_array_equal(o, outs[0])
+            want = np.load(tmp_path / f"tuple_ref_mode{mode}.npy")
+            assert _rel(outs[0], want) < TOL[np.float32], (kernel, mode)
+            oracle = core.mttkrp_dense_oracle(t, factors, mode)
+            assert _rel(outs[0], oracle) < TOL[np.float32], (kernel, mode)
+        assert sum(m[kernel]["h2d"] for m in metas) == TUPLE_BYTES
+        assert all(m[kernel]["device_bytes"] == m[kernel]["sharded_bytes"]
+                   == TUPLE_BYTES for m in metas)
