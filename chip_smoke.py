@@ -128,6 +128,19 @@ Phases, each of which exits non-zero when it fails:
    under the op recorder and ``torch.cuda.set_sync_debug_mode("error")``: no
    finding outside an inline disable.  K4's launches and the audit's
    K1/K2 launches are counted;
+[examples] the port's entry points on the card, each ``main`` at its
+   reference script's sizes and seeds with its output printed under the
+   phase's tag: ``repro_torch.examples.quickstart``,
+   ``oom_decomposition``, ``serve_td`` (all three acts), the chaos soak
+   (``repro_torch.scripts.chaos_soak``) under the chaos lane's
+   ``REPRO_FAULTS`` plan and under one ``plan.alloc`` fault with
+   ``REPRO_SANITIZE=1``, ``repro_torch.scripts.lint --tier all``, and
+   ``distributed_cpals`` (eight gloo ranks on the one card, each a process
+   that prints its K1/K2 launches as a JSON line); each must return 0 and
+   leave the pinned rings and the allocated device bytes as it found
+   them; seconds, K1/K2 launches and the largest |dfit| and |dfactor|
+   printed (where a tolerance replaces a bitwise check), and K1 and K2
+   must both have run in the phase;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -144,6 +157,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2477,6 +2491,129 @@ def analysis_phase(runs) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ [examples]
+# the chaos lane's plan (scripts/chaos_soak.py's docstring), then one
+# allocation fault
+SOAK_PLANS = ("1234:store.read@n=2:transient;runtime.quantum@n=3:crash",
+              "1234:plan.alloc@n=1")
+EXAMPLES_DIR = os.path.join(ROOT, "build", "examples")
+DELTA = re.compile(r"max \|d(fit|factor)\| ([0-9.e+-]+)")
+
+
+def held_bytes() -> tuple[int, int]:
+    """The pinned bytes of the port's open rings and the device bytes
+    allocated, after a collection.  cuBLAS keeps a workspace per thread's
+    handle in the caching allocator (32 MiB on the H100), and every
+    service runtime sweeps on a thread of its own: the workspaces are
+    freed first, as they are the library's, not the port's."""
+    import gc
+    import torch
+    from repro_torch.core.streaming import StreamBuffers
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return StreamBuffers.pinned_bytes(), torch.cuda.memory_allocated()
+
+
+def entry_point(name, main, argv) -> tuple[str, dict]:
+    """``main(argv)`` on the card, its output captured and then printed:
+    it must return 0 and leave the pinned rings and the allocated device
+    bytes where they were.  Returns its output and the K1/K2 launches this
+    process made in it."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import launch_counts
+    held = held_bytes()
+    before = dict(launch_counts)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            say(f"[examples] {name}: {line}")
+    secs = time.perf_counter() - t0
+    took = {k: launch_counts[k] - before[k] for k in KERNELS}
+    after = held_bytes()
+    deltas = {}
+    for kind, value in DELTA.findall(buf.getvalue()):
+        deltas[kind] = max(deltas.get(kind, 0.0), float(value))
+    say(f"[examples] {name}: exit {rc} in {secs:.2f} s; K1/K2 launches in "
+        f"this process {took['segment']}/{took['stash']}; largest "
+        f"|dfit| {deltas.get('fit', 'not printed')}, |dfactor| "
+        f"{deltas.get('factor', 'not printed')}; pinned and allocated "
+        f"bytes {held} before, {after} after")
+    if rc != 0:
+        raise AssertionError(f"[examples] {name} exited {rc}")
+    if after != held:
+        raise AssertionError(f"[examples] {name} left pinned and allocated "
+                             f"bytes {after}, found {held}")
+    return buf.getvalue(), took
+
+
+def restore_env(name, value) -> None:
+    """Set ``name`` back to ``value`` (None: unset)."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def examples_phase() -> tuple[dict, dict]:
+    """The ``[examples]`` phase: every entry point of the port at its
+    reference script's sizes on the card (the soak under each plan of
+    ``SOAK_PLANS`` with the sanitizer on); returns the K1/K2 launches
+    made in this process and those the distributed example's ranks
+    reported."""
+    from repro_torch.examples import (distributed_cpals, oom_decomposition,
+                                      quickstart, serve_td)
+    from repro_torch.faults import inject
+    from repro_torch.scripts import chaos_soak, lint
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLES_DIR)
+    launches = {}
+    sanitize = os.environ.get("REPRO_SANITIZE")
+    try:
+        for name, module in (("quickstart", quickstart),
+                             ("oom_decomposition", oom_decomposition),
+                             ("serve_td", serve_td)):
+            add_launches(launches, entry_point(name, module.main, [])[1])
+        os.environ["REPRO_SANITIZE"] = "1"
+        for i, spec in enumerate(SOAK_PLANS):
+            inject.install(spec)
+            _, took = entry_point(
+                f"chaos_soak[{i}]", chaos_soak.main,
+                ["--trace-out",
+                 os.path.join(EXAMPLES_DIR, f"chaos_trace{i}.json")])
+            inject.uninstall()
+            add_launches(launches, took)
+        restore_env("REPRO_SANITIZE", sanitize)
+        add_launches(launches, entry_point("lint --tier all", lint.main,
+                                           ["--tier", "all"])[1])
+        out, _ = entry_point("distributed_cpals", distributed_cpals.main, [])
+        ranks = [json.loads(line) for line in
+                 re.findall(r"^\[rank \d+\] (\{.*\})$", out, re.M)]
+        if len(ranks) != distributed_cpals.WORLD:
+            raise AssertionError(f"[examples] distributed_cpals: "
+                                 f"{len(ranks)} rank reports")
+        in_ranks = {}
+        for rep in ranks:
+            add_launches(in_ranks, rep["launches"])
+        say(f"[examples] distributed_cpals: K1/K2 launches of the "
+            f"{len(ranks)} ranks {in_ranks['segment']}/{in_ranks['stash']}")
+    finally:
+        inject.uninstall()
+        restore_env("REPRO_SANITIZE", sanitize)
+        shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    say(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
+    return ({k: launches.get(k, 0) for k in KERNELS},
+            {k: in_ranks.get(k, 0) for k in KERNELS})
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -2779,6 +2916,19 @@ def main() -> int:
                              f" {analysis_launches}")
     for k, n in analysis_launches.items():
         launches[k] += n
+    reset_launch_counts()
+    here, in_ranks = examples_phase()
+    if dict(launch_counts) != here:
+        raise AssertionError(f"[examples] launches {dict(launch_counts)}, "
+                             f"the entry points' {here}")
+    examples_launches = {k: here[k] + in_ranks[k] for k in KERNELS}
+    say(f"[examples] kernel launches of the entry points: {here} in this "
+        f"process, {in_ranks} in distributed_cpals' ranks")
+    if not all(examples_launches[v] > 0 for v in FUSED):
+        raise AssertionError(f"[examples] a kernel of the entry points never"
+                             f" ran: {examples_launches}")
+    for v in FUSED:
+        launches[v] += examples_launches[v]
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()
