@@ -140,7 +140,25 @@ Phases, each of which exits non-zero when it fails:
    leave the pinned rings and the allocated device bytes as it found
    them; seconds, K1/K2 launches and the largest |dfit| and |dfactor|
    printed (where a tolerance replaces a bitwise check), and K1 and K2
-   must both have run in the phase;
+   must both have run in the phase; ``serve_lm`` (the reduced LM) too;
+[serve] the served dense LM (``repro_torch.models``, ``.serving``): minicpm-2b
+   at full width and depth (40 layers, 2,725,173,504 parameters in f32,
+   drawn on the card from a seeded generator): decode against the
+   teacher-forced forward in f32 (B 2, S 16, within 2e-3),
+   ``Server.generate`` at serve_lm's sizes (batch 4, prompt 12, 24 new
+   tokens; bf16, greedy) twice with bitwise equal tokens, row 0 alone
+   beside the batch (agreement printed), the time to first token, the
+   median decode step by CUDA events, tokens/s, the cache and parameter
+   bytes, the cost of the f32 -> bf16 weight casts each step makes, the
+   peak device memory, and the first 2 layers' logits on the card against
+   the CPU on the same weights (1e-4 in f32, 2e-2 in bf16); qwen2.5-14b at
+   full width with its depth cut to 4 layers (GQA G = 5, QKV bias, the
+   untied head, rope theta 1e6) through the same decode and serving
+   checks at batch 2, prompt 6, 8 new tokens; ``embed_grad`` at
+   minicpm's 122,880 x 2304 table with (8, 2048) Zipf(1.3) ids: segment
+   against scatter within 2e-4, the autograd backward bitwise equal to
+   ``_grad_segment``, ms of each; device memory back where it was and no
+   kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -2569,7 +2587,7 @@ def examples_phase() -> tuple[dict, dict]:
     made in this process and those the distributed example's ranks
     reported."""
     from repro_torch.examples import (distributed_cpals, oom_decomposition,
-                                      quickstart, serve_td)
+                                      quickstart, serve_lm, serve_td)
     from repro_torch.faults import inject
     from repro_torch.scripts import chaos_soak, lint
     t_phase = time.perf_counter()
@@ -2580,7 +2598,8 @@ def examples_phase() -> tuple[dict, dict]:
     try:
         for name, module in (("quickstart", quickstart),
                              ("oom_decomposition", oom_decomposition),
-                             ("serve_td", serve_td)):
+                             ("serve_td", serve_td),
+                             ("serve_lm", serve_lm)):
             add_launches(launches, entry_point(name, module.main, [])[1])
         os.environ["REPRO_SANITIZE"] = "1"
         for i, spec in enumerate(SOAK_PLANS):
@@ -2612,6 +2631,300 @@ def examples_phase() -> tuple[dict, dict]:
     say(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
     return ({k: launches.get(k, 0) for k in KERNELS},
             {k: in_ranks.get(k, 0) for k in KERNELS})
+
+
+# --------------------------------------------------------------- [serve]
+# the served LM at full width and depth; serve_lm's default request sizes
+SERVE_ARCH, SERVE_LAYERS, SERVE_PARAMS = "minicpm-2b", 40, 2_725_173_504
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 12, 24
+# GQA grouping (G = 5), QKV bias, an untied head and rope theta 1e6 at
+# full width, the depth cut from 48 layers to 4 to fit beside the rest
+SERVE_CUT = ("qwen2.5-14b", 4, 2_658_214_912)
+CUT_BATCH, CUT_PROMPT, CUT_NEW = 2, 6, 8
+CONSISTENCY = (2, 16)       # decode vs forward: batch, positions
+CONSISTENCY_TOL = 2e-3      # the reference's own bound (tests/test_models.py)
+# card vs CPU on the same weights, the first 2 layers at full width:
+# f32 without TF32 differs only in the GEMMs' order of additions; bf16
+# within the CPU tests' bf16 logits tolerance
+CARD_CPU_LAYERS = 2
+CARD_CPU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+EMBED_IDS = (8, 2048)       # embed_grad's ids at minicpm's (V, D) table
+EMBED_TOL = 2e-4            # segment vs scatter (tests/test_embed_grad.py)
+DECODE_MARK = "decode_step"
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_vs_forward(model, cfg, dev, tag) -> None:
+    """f32 compute on the model's weights: each decode step's logits
+    against the teacher-forced forward's; raises past the bound."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    b, s = CONSISTENCY
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        ref, _ = transformer.forward(model, c32, {"tokens": toks})
+    cache = transformer.init_cache(c32, b, s, torch.float32, device=dev)
+    dec = torch.cat([transformer.decode_step(model, c32, cache,
+                                             toks[:, t:t + 1], t)[0]
+                     for t in range(s)], dim=1)
+    rel = rel_err(dec, ref)
+    say(f"[serve] {tag}: decode vs forward, f32, B {b}, S {s}: max|d|/max|"
+        f"ref| {rel:.3e} (bound {CONSISTENCY_TOL})")
+    if not rel < CONSISTENCY_TOL:
+        raise AssertionError(f"[serve] {tag}: decode vs forward {rel:.3e}")
+
+
+def serve_requests(model, cfg, dev, tag, batch, plen, n_new) -> np.ndarray:
+    """``Server.generate`` (bf16, greedy) twice on the same prompts: the
+    tokens must be equal; then row 0 alone.  Prints each run's seconds
+    and tokens/s and the agreement of the solo run."""
+    import torch
+    from repro_torch.serving import ServeConfig, Server
+    srv = Server(cfg, ServeConfig(max_len=plen + n_new), model, device=dev)
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (batch, plen)).astype(np.int32)
+    outs = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(srv.generate(prompts, n_new))
+        dt = time.perf_counter() - t0
+        say(f"[serve] {tag}: generate {batch} x ({plen} + {n_new}) run "
+            f"{run}: {dt:.3f} s, {batch * n_new / dt:.1f} new tokens/s, "
+            f"{batch * (plen + n_new) / dt:.1f} steps x rows/s")
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError(f"[serve] {tag}: two greedy runs differ: "
+                             f"{outs[0].tolist()} vs {outs[1].tolist()}")
+    if outs[0].shape != (batch, n_new) or not (
+            (outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all():
+        raise AssertionError(f"[serve] {tag}: tokens {outs[0].tolist()}")
+    solo = srv.generate(prompts[:1], n_new)
+    say(f"[serve] {tag}: greedy tokens bitwise equal across the two runs; "
+        f"row 0 alone agrees with the batch on "
+        f"{int((solo[0] == outs[0][0]).sum())} of {n_new} tokens; row 0: "
+        f"{outs[0][0].tolist()}")
+    return prompts
+
+
+def decode_timing(model, cfg, dev, prompts, n_new) -> dict:
+    """The server's loop, timed: the prefill to the first token on the
+    host (time to first token), each later decode step between CUDA
+    events (median), and the casts of the f32 weights to bf16 that every
+    step makes (all of them, timed alone)."""
+    import statistics
+    import torch
+    b, plen = prompts.shape
+    cache = model.init_cache(b, plen + n_new)
+    toks = torch.from_numpy(prompts).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(plen):
+            logits, _ = model.decode_step(cache, toks[:, t:t + 1], t)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        tok.cpu()
+        ttft = time.perf_counter() - t0
+        steps, issue = [], []
+        for i in range(n_new):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t1 = time.perf_counter()
+            logits, _ = model.decode_step(cache, tok, plen + i)
+            issue.append((time.perf_counter() - t1) * 1e3)
+            stop.record()
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            tok.cpu()
+            steps.append(start.elapsed_time(stop))
+        split = profile_decode_step(model, cache, tok, plen + n_new - 1)
+    weights = [p for p in model.parameters() if p.dim() == 2]
+    cast_ms = event_ms(lambda: [w.to(torch.bfloat16) for w in weights])
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    del cache
+    return {"ttft_s": ttft, "step_ms": statistics.median(steps),
+            "step_min_ms": min(steps), "issue_ms": statistics.median(issue),
+            "cast_ms": cast_ms, "cache_bytes": cache_bytes,
+            "cast_bytes": sum(w.numel() * 6 for w in weights),
+            "split": split}
+
+
+def profile_decode_step(model, cache, tok, pos) -> str:
+    """One decode step under ``torch.profiler``: device busy and idle ms
+    in the step's host span, the device events and the largest kernels
+    (``device_split``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(DECODE_MARK):
+            model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+    marks = [e.time_range for e in prof.events()
+             if e.name == DECODE_MARK and e.device_type == DeviceType.CPU]
+    split = device_split(prof, (marks[0].start, marks[0].end)) \
+        if marks else {"events": 0}
+    if not split["events"]:
+        return "the profiler recorded no device events: not measured"
+    top = "; ".join(f"{n} {us / 1e3:.3f}"
+                    for n, us in split.pop("top other kernels"))
+    return (f"{(marks[0].end - marks[0].start) / 1e3:.3f} ms under the "
+            f"profiler, device busy {split['device busy']:.3f}, idle "
+            f"{split['device idle']:.3f} ms, {split['events']} device "
+            f"events; largest kernels (ms): {top}")
+
+
+def card_vs_cpu(model, cfg, dev) -> None:
+    """The embedding, the first ``CARD_CPU_LAYERS`` layers and ``ln_f``
+    copied to the CPU: the forward's logits on both, f32 and bf16."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    c2 = dataclasses.replace(cfg, num_layers=CARD_CPU_LAYERS)
+    card = transformer.init_params(c2, device=dev)
+    keys = set(card.state_dict())
+    card.load_state_dict({k: v for k, v in model.state_dict().items()
+                          if k in keys})
+    cpu = transformer.init_params(c2, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    b, s = CONSISTENCY
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32))
+    for cd, tol in CARD_CPU_TOL.items():
+        c = dataclasses.replace(c2, compute_dtype=cd)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got, _ = transformer.forward(card, c, {"tokens": toks.to(dev)})
+            want, _ = transformer.forward(cpu, c, {"tokens": toks})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rel = rel_err(got, want)
+        say(f"[serve] {cfg.name} first {CARD_CPU_LAYERS} layers, {cd}: card "
+            f"vs CPU logits max|d|/max|ref| {rel:.3e} (bound {tol}; both "
+            f"forwards {secs:.2f} s)")
+        if not rel <= tol:
+            raise AssertionError(f"[serve] card vs CPU, {cd}: {rel:.3e}")
+
+
+def serve_model(arch, layers, params_want, dev, sizes, full) -> None:
+    """One config on the card: build it from the port's generator, check
+    its parameter count, decode vs forward, serve; for the full config
+    also time the loop and hold the card against the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
+    cfg = get_config(arch)
+    if layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tag = f"{cfg.name} x {layers} layers"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n = param_count(model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"[serve] {tag}: d_model {cfg.d_model}, heads {cfg.num_heads} (kv "
+        f"{cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"padded to {cfg.padded_vocab}, tied head {cfg.tie_embeddings}: "
+        f"{n:,} parameters, {nbytes:,} B ({cfg.param_dtype}), drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    if n != params_want:
+        raise AssertionError(f"[serve] {tag}: {n} parameters, expected "
+                             f"{params_want}")
+    decode_vs_forward(model, cfg, dev, tag)
+    batch, plen, n_new = sizes
+    prompts = serve_requests(model, cfg, dev, tag, batch, plen, n_new)
+    if full:
+        tm = decode_timing(model, cfg, dev, prompts, n_new)
+        say(f"[serve] {tag}: time to first token ({plen}-token prefill, "
+            f"batch {batch}) {tm['ttft_s'] * 1e3:.2f} ms; decode step median "
+            f"{tm['step_ms']:.3f} ms (min {tm['step_min_ms']:.3f}; CUDA "
+            f"events, {n_new} steps), {batch * 1e3 / tm['step_ms']:.1f} "
+            f"tokens/s at that step time; cache {tm['cache_bytes']:,} B "
+            f"(bf16); host issue of a step median {tm['issue_ms']:.3f} ms; "
+            f"the f32 -> bf16 casts of the weights alone "
+            f"{tm['cast_ms']:.3f} ms per step ({tm['cast_bytes']:,} B read "
+            f"and written, {tm['cast_bytes'] / tm['cast_ms'] / 1e6:.1f} "
+            f"GB/s)")
+        say(f"[serve] {tag}: one decode step: {tm['split']}")
+        card_vs_cpu(model, cfg, dev)
+    say(f"[serve] {tag}: peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated():,} B")
+    del model
+
+
+def embed_grad_check(dev) -> None:
+    """embed_grad at minicpm's (V, D) table: ids of Zipf(1.3) ranks, the
+    segment resolution against the scatter, the autograd backward equal
+    to ``_grad_segment`` (index_add_'s deterministic form), ms of each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import embedding_lookup
+    from repro_torch.core.embed_grad import _grad_scatter, _grad_segment
+    cfg = get_config(SERVE_ARCH)
+    vocab, d = cfg.padded_vocab, cfg.d_model
+    ids_np = (np.random.default_rng(SEED).zipf(1.3, size=EMBED_IDS)
+              % vocab).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    g = torch.randn(EMBED_IDS + (d,), device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    seg = _grad_segment(ids, g, vocab)
+    sc = _grad_scatter(ids.reshape(-1), g.reshape(-1, d), vocab)
+    diff = float((seg - sc).abs().max())
+    rel = diff / float(sc.abs().max())
+    if not torch.allclose(seg, sc, rtol=EMBED_TOL, atol=EMBED_TOL):
+        raise AssertionError(f"[serve] embed_grad segment vs scatter: max "
+                             f"|d| {diff:.3e}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        table = torch.zeros((vocab, d), device=dev, requires_grad=True)
+        embedding_lookup(table, ids, "segment").backward(g)
+        want = _grad_segment(ids, g, vocab)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(table.grad, want):
+        raise AssertionError("[serve] embed_grad: the autograd backward "
+                             "differs from _grad_segment")
+    del table, want
+    seg_ms = event_ms(lambda: _grad_segment(ids, g, vocab))
+    sc_ms = event_ms(lambda: _grad_scatter(ids.reshape(-1),
+                                           g.reshape(-1, d), vocab))
+    distinct = sum(len(np.unique(row)) for row in ids_np)
+    say(f"[serve] embed_grad ({vocab} x {d} f32 table, ids {EMBED_IDS} "
+        f"Zipf(1.3)): segment vs scatter within rtol = atol = {EMBED_TOL}"
+        f" (max |d| {diff:.3e}, max |d| / max |scatter| {rel:.3e}); autograd backward bitwise equal to _grad_segment; "
+        f"segment {seg_ms:.3f} ms, scatter {sc_ms:.3f} ms (CUDA events, "
+        f"median of {MEDIAN_OF}); {distinct:,} distinct (row, token) "
+        f"updates against {ids_np.size:,} occurrences")
+
+
+def serve_phase(dev) -> None:
+    """The ``[serve]`` phase: the served LM at full width and depth, the
+    depth-cut qwen, ``embed_grad``; device memory back where it was."""
+    t_phase = time.perf_counter()
+    held = held_bytes()
+    serve_model(SERVE_ARCH, SERVE_LAYERS, SERVE_PARAMS, dev,
+                (SERVE_BATCH, SERVE_PROMPT, SERVE_NEW), full=True)
+    arch, layers, want = SERVE_CUT
+    serve_model(arch, layers, want, dev, (CUT_BATCH, CUT_PROMPT, CUT_NEW),
+                full=False)
+    embed_grad_check(dev)
+    after = held_bytes()
+    if after != held:
+        raise AssertionError(f"[serve] left pinned and allocated bytes "
+                             f"{after}, found {held}")
+    say(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def overhead_phase(run) -> None:
@@ -2929,6 +3242,11 @@ def main() -> int:
                              f" ran: {examples_launches}")
     for v in FUSED:
         launches[v] += examples_launches[v]
+    reset_launch_counts()
+    serve_phase(dev)
+    if any(launch_counts.values()):
+        raise AssertionError(f"[serve] launched {dict(launch_counts)}; the "
+                             f"LM path runs no kernel of this port")
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

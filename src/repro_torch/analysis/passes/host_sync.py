@@ -8,10 +8,10 @@ cache and the ring exist to keep asynchronous: the host stops issuing
 until the card has drained.  The reference finds its hot functions
 structurally (``jit``, ``lax.scan``, ``pallas_call``); the port issues
 its launches from plain Python loops (``stacked_mttkrp`` over launches,
-``stream_mttkrp`` over chunks), each launch asynchronous, so its hot
-functions are named: the bodies in ``HOT`` below, and every function in
-``kernels/`` but the build.  A Python loop over launches is the port's
-design, not a finding.
+``stream_mttkrp`` over chunks, the LM's ``decode_step`` over layers),
+each launch asynchronous, so its hot functions are named: the bodies in
+``HOT`` below, and every function in ``kernels/`` but the build.  A
+Python loop over launches is the port's design, not a finding.
 
 Flagged inside a hot function (nested defs folded in):
 
@@ -50,6 +50,8 @@ HOT = {
                           "StreamBuffers.release"),
     "engine/plans.py": ("*.mttkrp",),
     "kernels/": ("*",),
+    "models/transformer.py": ("*decode_step",),
+    "models/attention.py": ("gqa_decode", "_full_attn"),
 }
 #: files under a hot fragment that run no launch
 COLD = ("kernels/build.py",)

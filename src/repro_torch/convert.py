@@ -9,6 +9,9 @@ that one tensor and one set of factors can be fed to both packages:
                          ref.values,
                          [(k.key, k.start, k.end, k.upper) for k in ref.blocks],
                          [(l.block_ids, l.start, l.end) for l in ref.launches])
+
+and the decoder LM's parameters both ways (``params_from_jax``,
+``params_to_jax``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.core import linearize as lin
 from repro_torch.core.blco import Block, BLCOTensor, Launch
 from repro_torch.core.cp_als import CPState
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import transformer
 
 
 def blco_from_arrays(dims, field_bits, field_shift, block_bits, idx_hi,
@@ -67,3 +71,69 @@ def cpstate_from_numpy(*, dims, rank: int, norm_x: float, tol: float,
                    grams=[f.T @ f for f in fs], fits=list(fits),
                    prev_fit=float(prev_fit), iteration=int(iteration),
                    converged=bool(converged))
+
+
+# the reference stacks each layer group's leaves on a leading axis
+STACKED = ("dense_layers",)
+
+
+def _flatten(tree, prefix=()):
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def params_from_jax(cfg, tree, *, device=DEFAULT_DEVICE):
+    """The port's model of ``cfg`` holding the reference's parameters.
+
+    tree: the reference's params pytree as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, model.init(key))``).  Each stacked (L, ...)
+    leaf is split per layer; every array is copied with its dtype, and a
+    missing, extra or mis-shaped leaf raises."""
+    dev = resolve_device(device)
+    model = transformer.init_params(cfg, device=dev, generator=None)
+    state = {}
+    for path, leaf in _flatten(tree):
+        arr = torch.from_numpy(np.array(leaf))
+        if path[0] in STACKED:
+            for i in range(arr.shape[0]):
+                state[".".join((path[0], str(i)) + path[1:])] = arr[i]
+        else:
+            state[".".join(path)] = arr
+    want = model.state_dict()
+    if set(state) != set(want):
+        raise ValueError(f"the tree's leaves differ from {cfg.name}'s: "
+                         f"missing {sorted(set(want) - set(state))}, extra "
+                         f"{sorted(set(state) - set(want))}")
+    for key, t in want.items():
+        if state[key].shape != t.shape or state[key].dtype != t.dtype:
+            raise ValueError(f"{key}: {tuple(state[key].shape)} "
+                             f"{state[key].dtype}, the model holds "
+                             f"{tuple(t.shape)} {t.dtype}")
+    model.load_state_dict(state)
+    return model
+
+
+def params_to_jax(model) -> dict:
+    """The inverse: the model's parameters as the reference's pytree of
+    numpy arrays, each layer group stacked on a leading axis."""
+    tree: dict = {}
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = t.detach().cpu().numpy()
+    for group in STACKED:
+        if group in tree:
+            tree[group] = _stack([tree[group][str(i)]
+                                  for i in range(len(tree[group]))])
+    return tree
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
+            else np.stack([t[k] for t in trees]) for k in first}

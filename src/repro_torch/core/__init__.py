@@ -1,7 +1,8 @@
 """Core library of the PyTorch port: BLCO format, mode-agnostic MTTKRP,
 launch cache, CP-ALS and out-of-memory streaming (the paper's in-memory
 and out-of-memory regimes), the MTTKRP sharded over a mesh of
-``torch.distributed`` ranks, and the baselines it is compared against."""
+``torch.distributed`` ranks, the baselines it is compared against, and
+the embedding-gradient accumulation (sort + segment) of the LM path."""
 from .tensor import (SparseTensor, from_coo, load_tns, paper_like,
                      random_tensor, top_up_uniform)
 from .blco import BLCOTensor, build_blco, decode_coords, format_bytes
@@ -19,6 +20,7 @@ from .streaming import (EngineStats, LaunchChunks, OOMExecutor,
                         ReservationSpec, StreamBuffers, StreamStats,
                         reservation_for, stream_mttkrp)
 from .distributed import make_distributed_mttkrp, shard_launch_arrays
+from .embed_grad import embedding_lookup
 
 __all__ = [
     "SparseTensor", "random_tensor", "top_up_uniform", "from_coo",
@@ -35,5 +37,5 @@ __all__ = [
     "cp_als_step", "init_factors", "reconstruct_dense",
     "EngineStats", "LaunchChunks", "OOMExecutor", "ReservationSpec",
     "StreamBuffers", "StreamStats", "reservation_for", "stream_mttkrp",
-    "make_distributed_mttkrp", "shard_launch_arrays",
+    "make_distributed_mttkrp", "shard_launch_arrays", "embedding_lookup",
 ]

@@ -75,6 +75,11 @@ DIFFERENCES = {
                        "card, every rank on cuda:0)",
         "array_equal": "the parent holds the ranks' factors bitwise equal",
     },
+    "examples/serve_lm.py": {
+        "device_parser": "--device, as above; the model's weights are "
+                         "drawn on it (tests/test_torch_models.py::"
+                         "DIFFERENCES)",
+    },
     "scripts/chaos_soak.py": {
         "device_parser": "--device, as above",
         "FIT_TOL": "a done job is bit-identical on the CPU; on the card "

@@ -392,6 +392,37 @@ def test_host_sync_twin_scope_and_fence():
                                    fenced}), "host-sync-in-hot-path")
 
 
+BAD_DECODE = {
+    "src/repro_torch/models/transformer.py": '''
+def decode_step(params, cfg, cache, tokens, pos):
+    if bool(tokens.max() >= cfg.padded_vocab):
+        raise ValueError("token out of range")
+    return tokens, cache
+
+
+def forward(params, cfg, batch):
+    return batch["tokens"].tolist()
+''',
+    "src/repro_torch/models/attention.py": '''
+def gqa_decode(p, cfg, x, cache_k, cache_v, pos):
+    return x.cpu(), cache_k, cache_v
+
+
+def _full_attn(q, k, v, mask):
+    return q[mask.nonzero().numpy()]
+''',
+}
+
+
+def test_host_sync_twin_covers_the_decode_bodies():
+    """The LM's decode step, ``gqa_decode`` and ``_full_attn`` are hot;
+    the prefill ``forward`` is not."""
+    found = _only(lint_sources(BAD_DECODE), "host-sync-in-hot-path")
+    assert sorted((f.path.rsplit("/", 1)[-1], f.symbol) for f in found) == [
+        ("attention.py", "_full_attn"), ("attention.py", "gqa_decode"),
+        ("transformer.py", "decode_step")]
+
+
 # the streamed put time as it once was: the clock ran around the wait for
 # the host set, its fill and the asynchronous copy, with no fence
 BAD_PUT_TIME = '''

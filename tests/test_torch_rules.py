@@ -32,7 +32,12 @@ def test_port_files_exist():
     for want in ("src/repro_torch/core/blco.py",
                  "src/repro_torch/core/mttkrp.py",
                  "src/repro_torch/kernels/fused.py",
-                 "src/repro_torch/engine/plans.py", "chip_smoke.py"):
+                 "src/repro_torch/engine/plans.py",
+                 "src/repro_torch/core/embed_grad.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/serving/decode.py",
+                 "src/repro_torch/examples/serve_lm.py", "chip_smoke.py"):
         assert want in names
 
 
