@@ -159,6 +159,28 @@ Phases, each of which exits non-zero when it fails:
    against scatter within 2e-4, the autograd backward bitwise equal to
    ``_grad_segment``, ms of each; device memory back where it was and no
    kernel of K1-K5 launched;
+[train] the trained dense LM (``repro_torch.launch.steps``, ``.optim``,
+   ``.train``): minicpm-2b at full width and depth (40 layers, f32
+   parameters, m and v, the WSD schedule, ``embed_grad="segment"``) takes
+   6 in-place steps (``make_train_step(donate=True)``) on SyntheticLM
+   batches at (B, S) = (1, 4096), the reference's train_4k sequence with
+   its batch of 256 cut to 1: parameter and state bytes, each step's
+   loss, grad norm and lr (finite; lr the host's schedule within 1e-6),
+   step ms by the host clock fenced by the loss read and by CUDA events,
+   tokens/s, matmul TFLOP per step, the peak device memory, one profiled
+   step (device busy and idle ms, device events, the aten ops with the
+   most device time) and one step split in its forward, backward and
+   AdamW by CUDA events; the table's gradient of one full-depth step by
+   segment and by scatter (within 2e-4) with each backward's ms; one f32
+   out-of-place step over the first 2 layers on the card and on the host
+   from the same weights (loss and grad norm within 1e-5, parameters
+   within a tenth of lr); the ``Trainer`` over 2 layers at full width:
+   6 steps with async checkpoints every 3 under ``build/train/``, a
+   restart from step 3 ending within rtol = atol = 1e-6 of the straight
+   run, the state saved and restored alone (seconds), a poisoned batch
+   the NaN guard skips, the directory deleted and the held bytes back;
+   ``python -m repro_torch.examples.train_lm`` at its reference sizes;
+   no kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -2927,6 +2949,553 @@ def serve_phase(dev) -> None:
     say(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------- [train]
+# minicpm-2b at full width and depth, trained in place (donate=True) on
+# SyntheticLM batches at the reference's train_4k sequence (4096), its
+# global batch of 256 cut to 1: the card holds the f32 parameters,
+# gradients, m and v (43.6 GB) beside the step's activations
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "minicpm-2b", 40, 2_725_173_504
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 6
+# AdamW as the launcher's (peak 3e-4) with the config's WSD schedule over
+# the phase's 6 steps: warmup at step 1, the plateau at 2-5, the decay's
+# last step at 6
+TRAIN_OPT = dict(peak_lr=3e-4, warmup=2, total_steps=TRAIN_STEPS)
+LR_TOL = 1e-6               # the device schedule against the host's
+# card vs CPU: one out-of-place f32 step at full width over 2 layers on
+# (1, 128); the loss and the grad norm differ only in the order of the
+# GEMMs' additions, the parameters by at most a tenth of lr (AdamW's
+# normalisation moves an element whose gradient is at the rounding noise
+# by up to 2 lr: tests/test_torch_trainer.py holds the reference so)
+CARD_CPU_TRAIN = (2, 1, 128)
+CARD_CPU_LOSS_TOL = 1e-5
+CARD_CPU_PARAM_LR = 0.1
+# the Trainer at full width over 2 layers: ckpt_dir under build/train/
+TRAINER_DIR = os.path.join(ROOT, "build", "train")
+TRAINER_LAYERS, TRAINER_STEPS, TRAINER_EVERY = 2, 6, 3
+RESUME_TOL = 1e-6           # tests/test_trainer.py::test_resume_bit_exact
+TRAIN_MARK = "train_step"
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+# the ops of core/embed_grad.py::_grad_segment, which nothing else in the
+# step calls
+LOOKUP_OPS = ("aten::sort", "aten::gather", "aten::cumsum",
+              "aten::index_add_", "aten::scatter_reduce_")
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 (NVIDIA's data sheet)
+
+
+def host_wsd(step, *, peak_lr, warmup, total_steps, decay_frac=0.1,
+             final_frac=0.01) -> float:
+    """The WSD schedule in float64 on the host (the device's is f32)."""
+    decay_steps = max(1, total_steps * decay_frac)
+    decay_start = total_steps - decay_steps
+    if step < warmup:
+        return peak_lr * step / max(1, warmup)
+    if step < decay_start:
+        return peak_lr
+    t = min(max((step - decay_start) / decay_steps, 0.0), 1.0)
+    return peak_lr * math.exp(math.log(final_frac) * t)
+
+
+def train_flops(cfg, b, s) -> float:
+    """Matmul FLOPs of one train step with each layer recomputed: the
+    layers' forward twice (once more in the backward) and their backward
+    (twice a forward); the head once forward and its backward."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    proj = 2 * b * s * (d * h * hd + 2 * d * kv * hd + h * hd * d
+                        + 3 * d * cfg.d_ff)
+    attn = 2 * 2 * b * h * s * s * hd           # scores and p @ v, full S
+    head = 2 * b * s * d * cfg.padded_vocab
+    return cfg.num_layers * (proj + attn) * 4 + head * 3
+
+
+def train_state_bytes(state) -> tuple[int, int]:
+    """(parameter bytes, optimizer state bytes)."""
+    p = sum(t.numel() * t.element_size()
+            for t in state["params"].parameters())
+    o = sum(t.numel() * t.element_size()
+            for k in ("m", "v") for t in state["opt"][k].values())
+    return p, o
+
+
+def profile_train_step(step_fn, state, batch) -> tuple[dict, dict, str]:
+    """One train step under ``torch.profiler``: the new state, the step's
+    metrics and a line with the device busy and idle ms in the step's
+    host span, the device events, and the aten ops with the most device
+    time (self, summed over calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(TRAIN_MARK):
+            state, met = step_fn(state, batch)
+            float(met["loss"])
+            torch.cuda.synchronize()
+    marks = [e.time_range for e in prof.events()
+             if e.name == TRAIN_MARK and e.device_type == DeviceType.CPU]
+    split = device_split(prof, (marks[0].start, marks[0].end)) \
+        if marks else {"events": 0}
+    if not split["events"]:
+        return state, met, ("the profiler recorded no device events: not "
+                            "measured")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    gemm = sum(dev_us(e) for e in ops if e.key in GEMM_OPS)
+    lookup = sum(dev_us(e) for e in ops if e.key in LOOKUP_OPS)
+    top = "; ".join(f"{e.key} {dev_us(e) / 1e3:.3f} ms x {e.count}"
+                    for e in sorted(ops, key=lambda e: -dev_us(e))[:12])
+    return state, met, (
+        f"{(marks[0].end - marks[0].start) / 1e3:.3f} ms under the "
+        f"profiler, device busy {split['device busy']:.3f}, idle "
+        f"{split['device idle']:.3f} ms, {split['events']} device events; "
+        f"GEMMs ({', '.join(GEMM_OPS)}) {gemm / 1e3:.3f} ms; the lookup's "
+        f"backward, _grad_segment ({', '.join(LOOKUP_OPS)}) "
+        f"{lookup / 1e3:.3f} ms; aten ops by self device time: {top}")
+
+
+def split_train_step(cfg, opt_cfg, state, batch) -> dict:
+    """The train step's three parts as ``make_train_step(donate=True)``
+    runs them (the loss, ``torch.autograd.grad``, the in-place AdamW),
+    with CUDA events between them and the host's issue time of each."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    host = []
+    model = state["params"]
+    named = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    ev[0].record()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, _ = transformer.loss_fn(model, cfg, batch)
+        host.append(time.perf_counter() - t0)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
+        host.append(time.perf_counter() - t0 - sum(host))
+        ev[2].record()
+    adamw.apply_updates(named, dict(zip(named, grads)), state["opt"],
+                        opt_cfg, inplace=True)
+    host.append(time.perf_counter() - t0 - sum(host))
+    ev[3].record()
+    float(loss.detach())
+    torch.cuda.synchronize()
+    parts = ("forward", "backward (with the recompute)", "AdamW")
+    return {p: (ev[i].elapsed_time(ev[i + 1]), host[i] * 1e3)
+            for i, p in enumerate(parts)}
+
+
+def full_depth_steps(dev) -> None:
+    """``TRAIN_STEPS`` in-place steps of minicpm-2b at full width and
+    depth: bytes, each step's loss, grad norm and lr (held against the
+    host's schedule), step ms by the host clock (fenced by the loss read)
+    and by CUDA events, tokens/s, the peak memory; then one step split in
+    its three parts and one profiled step; then the table gradient by
+    segment and by scatter."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, param_count
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import put_batch
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.num_layers != TRAIN_LAYERS or cfg.embed_grad != "segment":
+        raise AssertionError(f"[train] {cfg.name}: {cfg.num_layers} layers, "
+                             f"embed_grad {cfg.embed_grad}")
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **TRAIN_OPT)
+    tag = f"{cfg.name} x {TRAIN_LAYERS} layers"
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    torch.cuda.synchronize()
+    pbytes, obytes = train_state_bytes(state)
+    n = param_count(model)
+    say(f"[train] {tag}: {n:,} parameters, {pbytes:,} B of f32 parameters "
+        f"and {obytes:,} B of m and v, drawn and zeroed on the card in "
+        f"{time.perf_counter() - t0:.2f} s; schedule {cfg.schedule} "
+        f"{TRAIN_OPT}, embed_grad {cfg.embed_grad}, remat "
+        f"{cfg.remat_policy}, compute {cfg.compute_dtype}")
+    if n != TRAIN_PARAMS:
+        raise AssertionError(f"[train] {tag}: {n} parameters")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ))
+    step_fn = steps.make_train_step(cfg, opt_cfg, donate=True)
+    host_ms, dev_ms = [], []
+    for i in range(TRAIN_STEPS - 1):
+        batch = put_batch(data.batch_at(i), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        new, met = step_fn(state, batch)
+        stop.record()
+        loss = float(met["loss"])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(stop))
+        check_train_metrics(tag, i + 1, loss, met, opt_cfg)
+        if new["params"] is not state["params"]:
+            raise AssertionError("[train] the in-place step returned "
+                                 "another model")
+        state = new
+    # the last step under the profiler
+    state, met, prof_line = profile_train_step(
+        step_fn, state, put_batch(data.batch_at(TRAIN_STEPS - 1), dev))
+    check_train_metrics(tag, TRAIN_STEPS, float(met["loss"]), met, opt_cfg)
+    if int(state["opt"]["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"[train] the step counter reads "
+                             f"{int(state['opt']['step'])}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    med_host = statistics.median(host_ms[1:])
+    med_dev = statistics.median(dev_ms[1:])
+    say(f"[train] {tag}: step ms (steps 2-{TRAIN_STEPS - 1}) by the host "
+        f"clock fenced by the loss read {[round(t, 3) for t in host_ms]} "
+        f"(median {med_host:.3f}), by CUDA events "
+        f"{[round(t, 3) for t in dev_ms]} (median {med_dev:.3f}); step 1 "
+        f"includes the first calls' set-up")
+    say(f"[train] {tag}: {TRAIN_BATCH * TRAIN_SEQ / med_host * 1e3:.1f} "
+        f"tokens/s at (B, S) = ({TRAIN_BATCH}, {TRAIN_SEQ}); "
+        f"{flops / 1e12:.2f} TFLOP of matmuls per step with the recompute, "
+        f"{flops / med_dev / 1e9:.1f} TFLOP/s by the event time, bound "
+        f"{flops / BF16_PEAK_FLOPS * 1e3:.3f} ms at the bf16 peak; peak "
+        f"max_memory_allocated {peak:,} B of the card's {total:,} B "
+        f"({(total - peak) / 2**30:.2f} GiB free), {peak - before:,} B of "
+        f"it the phase's (above the {before:,} B allocated before it)")
+    say(f"[train] {tag}: one profiled step (step {TRAIN_STEPS}): "
+        f"{prof_line}")
+    weights = [p for p in model.parameters() if p.dim() == 2]
+    cast_ms = event_ms(lambda: [w.to(torch.bfloat16) for w in weights])
+    say(f"[train] {tag}: one f32 -> bf16 cast of every weight alone "
+        f"{cast_ms:.3f} ms (CUDA events, median of {MEDIAN_OF}); a step "
+        f"casts each twice (the forward and its recompute) and casts its "
+        f"gradient back once")
+    parts = split_train_step(cfg, opt_cfg, state,
+                             put_batch(data.batch_at(TRAIN_STEPS), dev))
+    say(f"[train] {tag}: one more step in its parts, device ms by CUDA "
+        f"events (host issue ms): " + "; ".join(
+            f"{p} {d:.3f} ({h:.3f})" for p, (d, h) in parts.items()))
+    embed_grads(model, cfg, put_batch(data.batch_at(0), dev), tag)
+    del state, model, new, met, batch, weights
+    say(f"[train] {tag}: peak max_memory_allocated {peak:,} B, "
+        f"{peak - before:,} B of it the phase's")
+
+
+def check_train_metrics(tag, step, loss, met, opt_cfg) -> None:
+    """The step's loss and grad norm finite, its lr the host's schedule."""
+    gnorm, lr = float(met["grad_norm"]), float(met["lr"])
+    want = host_wsd(step, **{k: getattr(opt_cfg, k) for k in
+                             ("peak_lr", "warmup", "total_steps")})
+    say(f"[train] {tag}: step {step}: loss {loss:.6f}, grad norm "
+        f"{gnorm:.6f}, lr {lr:.6e} (host schedule {want:.6e})")
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        raise AssertionError(f"[train] step {step}: loss {loss}, grad norm "
+                             f"{gnorm}")
+    if not abs(lr - want) <= LR_TOL * want:
+        raise AssertionError(f"[train] step {step}: lr {lr}, the host's "
+                             f"schedule {want}")
+
+
+def embed_grads(model, cfg, batch, tag) -> None:
+    """The table's gradient of one full-depth loss by ``segment`` and by
+    ``scatter`` (the head's part and the lookup's), within rtol = atol =
+    ``EMBED_TOL``; each backward timed by CUDA events."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    out, ms = {}, {}
+    for method in ("segment", "scatter"):
+        c = dataclasses.replace(cfg, embed_grad=method)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with torch.enable_grad():
+            loss, _ = transformer.loss_fn(model, c, batch)
+            start.record()
+            (out[method],) = torch.autograd.grad(loss, [model.embed.table])
+            stop.record()
+        torch.cuda.synchronize()
+        ms[method] = start.elapsed_time(stop)
+    seg, sc = out["segment"], out["scatter"]
+    diff = float((seg - sc).abs().max())
+    if not torch.allclose(seg, sc, rtol=EMBED_TOL, atol=EMBED_TOL):
+        raise AssertionError(f"[train] table gradient segment vs scatter: "
+                             f"max |d| {diff:.3e}")
+    say(f"[train] {tag}: the table's gradient of one step by segment vs "
+        f"scatter within rtol = atol = {EMBED_TOL} (max |d| {diff:.3e}, "
+        f"max |d| / max |scatter| {diff / float(sc.abs().max()):.3e}); "
+        f"backward {ms['segment']:.3f} ms by segment, {ms['scatter']:.3f} "
+        f"ms by scatter (CUDA events, one each)")
+
+
+def card_vs_cpu_step(dev) -> None:
+    """One out-of-place f32 step at full width over ``CARD_CPU_TRAIN``'s
+    layers on the card and on the host from the same weights: the loss,
+    the grad norm and every updated parameter."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import put_batch
+    layers, b, s = CARD_CPU_TRAIN
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers,
+                              compute_dtype="float32")
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **TRAIN_OPT)
+    card = build_model(cfg, device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED + 1))
+    cpu = transformer.init_params(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=b, seq_len=s)).batch_at(0)
+    step = steps.make_train_step(cfg, opt_cfg)
+    out = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        new, met = step({"params": model,
+                         "opt": adamw.init_state(model, opt_cfg)},
+                        put_batch(host, model.embed.table.device))
+        loss = float(met["loss"])
+        out[where] = (new, met, time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise AssertionError(f"[train] card vs CPU: {where} loss {loss}")
+    (cn, cm, ct), (hn, hm, ht) = out["card"], out["cpu"]
+    lr = float(hm["lr"])
+    loss_rel = abs(float(cm["loss"]) - float(hm["loss"])) / \
+        abs(float(hm["loss"]))
+    norm_rel = abs(float(cm["grad_norm"]) - float(hm["grad_norm"])) / \
+        float(hm["grad_norm"])
+    hp = dict(hn["params"].named_parameters())
+    worst = max(float((p.detach().cpu() - hp[k].detach()).abs().max())
+                for k, p in cn["params"].named_parameters())
+    say(f"[train] card vs CPU, {cfg.name} x {layers} layers, f32, (B, S) = "
+        f"({b}, {s}), one out-of-place step: loss {float(cm['loss']):.6f} "
+        f"vs {float(hm['loss']):.6f} (rel {loss_rel:.3e}, bound "
+        f"{CARD_CPU_LOSS_TOL}), grad norm rel {norm_rel:.3e} (bound "
+        f"{CARD_CPU_LOSS_TOL}), largest parameter difference "
+        f"{worst:.3e} = {worst / lr:.4f} lr (bound {CARD_CPU_PARAM_LR} lr); "
+        f"the card's step {ct:.2f} s, the host's {ht:.2f} s")
+    if not (loss_rel <= CARD_CPU_LOSS_TOL and norm_rel <= CARD_CPU_LOSS_TOL
+            and worst <= CARD_CPU_PARAM_LR * lr):
+        raise AssertionError("[train] card vs CPU step out of bounds")
+
+
+def trainer_run(cfg, opt_cfg, data, ckpt_dir, dev, total, *, every=100,
+                step=None, data_source=None):
+    """A ``Trainer`` of ``total`` steps on the card; returns it, its run's
+    output and its seconds (construction, with any restore, apart)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.train import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    tr = Trainer(TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                               ckpt_every=every, ckpt_async=True,
+                               log_every=1),
+                 cfg, opt_cfg, step or steps.make_train_step(cfg, opt_cfg),
+                 data_source or data,
+                 init_generator=torch.Generator(dev).manual_seed(SEED + 2),
+                 device=dev)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = tr.run()
+    return tr, out, made, time.perf_counter() - t0
+
+
+def trainer_checks(dev) -> None:
+    """The Trainer at full width over ``TRAINER_LAYERS`` layers.  Under
+    ``torch.use_deterministic_algorithms``: a straight run with async
+    saves, and a restart from step 3 (3 steps and a blocking save, then a
+    new Trainer that restores it) that must end within ``RESUME_TOL`` of
+    it.  In the default mode: the same 6 steps again, their distance from
+    the deterministic run printed (index_add_'s atomics), and a poisoned
+    batch the NaN guard skips.  Then the directory deleted and the held
+    bytes back."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAINER_LAYERS)
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **TRAIN_OPT)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ))
+    tag = f"{cfg.name} x {TRAINER_LAYERS} layers"
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    held = held_bytes()
+    resumed_dir = os.path.join(TRAINER_DIR, "resumed")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        straight, out, made, secs = trainer_run(
+            cfg, opt_cfg, data, os.path.join(TRAINER_DIR, "straight"), dev,
+            TRAINER_STEPS, every=TRAINER_EVERY)
+        _, first, _, first_s = trainer_run(cfg, opt_cfg, data, resumed_dir,
+                                           dev, TRAINER_EVERY)
+        resumed, out2, restore_s, _ = trainer_run(
+            cfg, opt_cfg, data, resumed_dir, dev, TRAINER_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [round(h["loss"], 5) for h in out["history"]]
+    nbytes = sum(train_state_bytes(straight.state))
+    say(f"[train] Trainer {tag}: {TRAINER_STEPS} steps in {secs:.2f} s "
+        f"(built in {made:.2f} s), checkpoints of {nbytes:,} B every "
+        f"{TRAINER_EVERY} steps written on a thread: steps on disk "
+        f"{ckpt.list_steps(os.path.join(TRAINER_DIR, 'straight'))}; losses "
+        f"{losses}; step s "
+        f"{[round(h['step_time_s'], 4) for h in out['history']]}")
+    if out["final_step"] != TRAINER_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] Trainer: {out}")
+    if resumed.start_step != TRAINER_EVERY or \
+            out2["final_step"] != TRAINER_STEPS:
+        raise AssertionError(f"[train] the restart began at "
+                             f"{resumed.start_step}: {out2}")
+    d = state_difference(straight.state, resumed.state)
+    save_s = first_s - sum(h["step_time_s"] for h in first["history"])
+    say(f"[train] Trainer {tag}, deterministic algorithms: a restart from "
+        f"step {TRAINER_EVERY} ends within rtol = atol = {RESUME_TOL} of the "
+        f"straight run: largest parameter difference {d['max']:.3e}, "
+        f"{d['over']} of {d['of']:,} elements beyond; the blocking save "
+        f"{save_s:.2f} s (the run's seconds less its steps'), the restore "
+        f"{restore_s:.2f} s (the Trainer's construction)")
+    if d["over"]:
+        raise AssertionError(f"[train] the restart is off by {d}")
+    del resumed
+    rerun, _, _, _ = trainer_run(cfg, opt_cfg, data,
+                                 os.path.join(TRAINER_DIR, "rerun"), dev,
+                                 TRAINER_STEPS)
+    d = state_difference(straight.state, rerun.state)
+    lr = max(h["lr"] for h in out["history"])
+    say(f"[train] Trainer {tag}: the same {TRAINER_STEPS} steps in the "
+        f"default mode against the deterministic run (index_add_'s atomics "
+        f"order the embedding gradient's sums): largest parameter "
+        f"difference {d['max']:.3e} = {d['max'] / lr:.3f} lr in "
+        f"{d['leaf']}, {d['over']} of {d['of']:,} elements beyond rtol = "
+        f"atol = {RESUME_TOL} (printed, not gated)")
+    del straight, rerun
+    # the NaN guard: a poisoned batch at step 2 is skipped
+    poison = PoisonedSource(data, 2)
+    nan_tr, out3, _, _ = trainer_run(
+        cfg, opt_cfg, data, os.path.join(TRAINER_DIR, "nan"), dev, 4,
+        step=poison.step(steps.make_train_step(cfg, opt_cfg)),
+        data_source=poison)
+    if out3["nan_skipped"] != [2] or int(nan_tr.state["opt"]["step"]) != 3:
+        raise AssertionError(f"[train] the NaN guard: {out3}")
+    say(f"[train] Trainer {tag}: the NaN guard skipped the poisoned step "
+        f"{out3['nan_skipped']}; the step counter reads "
+        f"{int(nan_tr.state['opt']['step'])} after 4 steps")
+    del nan_tr
+    shutil.rmtree(TRAINER_DIR)
+    after = held_bytes()
+    if after != held:
+        raise AssertionError(f"[train] the Trainer left pinned and allocated "
+                             f"bytes {after}, found {held}")
+    say(f"[train] Trainer: {TRAINER_DIR} deleted; pinned and allocated bytes "
+        f"back at {after}")
+
+
+def state_difference(a, b) -> dict:
+    """How far train state ``b``'s parameters lie from ``a``'s: the largest
+    element difference and its parameter, and the elements beyond rtol =
+    atol = ``RESUME_TOL`` of all of them."""
+    import torch
+    pa = dict(a["params"].named_parameters())
+    out = {"max": 0.0, "leaf": None, "over": 0, "of": 0}
+    with torch.no_grad():
+        for k, p in b["params"].named_parameters():
+            d = (p - pa[k]).abs()
+            if float(d.max()) > out["max"]:
+                out["max"], out["leaf"] = float(d.max()), k
+            out["over"] += int((d > RESUME_TOL * (1 + pa[k].abs())).sum())
+            out["of"] += p.numel()
+    return out
+
+
+class PoisonedSource:
+    """A data source whose batch at ``at`` carries a ``poison`` mark, and
+    the step that reports a NaN loss for it (``tests/test_trainer.py``'s
+    NaN guard test)."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at = inner, at
+
+    def batch_at(self, step):
+        b = self.inner.batch_at(step)
+        return dict(b, poison=None) if step == self.at else b
+
+    @staticmethod
+    def step(inner):
+        import torch
+
+        def poisoned(state, batch):
+            nan = "poison" in batch
+            new, met = inner(state, {k: v for k, v in batch.items()
+                                     if k != "poison"})
+            if nan:
+                met = dict(met, loss=torch.full_like(met["loss"],
+                                                     float("nan")))
+            return new, met
+        return poisoned
+
+
+def train_lm_example() -> None:
+    """``python -m repro_torch.examples.train_lm`` at its reference sizes
+    on the card, in this process: exit 0 and the final step."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.examples import train_lm
+    d = os.path.join(TRAINER_DIR, "train_lm")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train_lm.main(["--ckpt-dir", d])
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            say(f"[train] train_lm: {line}")
+    secs = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    say(f"[train] train_lm: exit {rc} in {secs:.2f} s")
+    if rc != 0 or "done at step 300" not in buf.getvalue():
+        raise AssertionError("[train] train_lm did not finish")
+
+
+def train_phase(dev) -> None:
+    """The ``[train]`` phase: minicpm-2b trained at full width and depth,
+    the card against the CPU, the Trainer, ``train_lm``."""
+    import torch
+    t_phase = time.perf_counter()
+    held = held_bytes()
+    full_depth_steps(dev)
+    torch.cuda.empty_cache()
+    card_vs_cpu_step(dev)
+    trainer_checks(dev)
+    train_lm_example()
+    after = held_bytes()
+    if after != held:
+        raise AssertionError(f"[train] left pinned and allocated bytes "
+                             f"{after}, found {held}")
+    say(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -3247,6 +3816,12 @@ def main() -> int:
     if any(launch_counts.values()):
         raise AssertionError(f"[serve] launched {dict(launch_counts)}; the "
                              f"LM path runs no kernel of this port")
+    reset_launch_counts()
+    train_phase(dev)
+    say(f"[train] kernel launches of the phase: {dict(launch_counts)}")
+    if any(launch_counts.values()):
+        raise AssertionError(f"[train] launched {dict(launch_counts)}; the "
+                             f"training path runs no kernel of this port")
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

@@ -8,8 +8,9 @@ cache and the ring exist to keep asynchronous: the host stops issuing
 until the card has drained.  The reference finds its hot functions
 structurally (``jit``, ``lax.scan``, ``pallas_call``); the port issues
 its launches from plain Python loops (``stacked_mttkrp`` over launches,
-``stream_mttkrp`` over chunks, the LM's ``decode_step`` over layers),
-each launch asynchronous, so its hot functions are named: the bodies in
+``stream_mttkrp`` over chunks, the LM's ``decode_step`` over layers,
+the train step and AdamW over parameters), each launch asynchronous, so
+its hot functions are named: the bodies in
 ``HOT`` below, and every function in ``kernels/`` but the build.  A
 Python loop over launches is the port's design, not a finding.
 
@@ -50,8 +51,13 @@ HOT = {
                           "StreamBuffers.release"),
     "engine/plans.py": ("*.mttkrp",),
     "kernels/": ("*",),
-    "models/transformer.py": ("*decode_step",),
+    "models/transformer.py": ("*decode_step", "parallel_cross_entropy",
+                              "loss_fn"),
     "models/attention.py": ("gqa_decode", "_full_attn"),
+    "optim/adamw.py": ("apply_updates", "_global_norm", "_quant",
+                       "_dequant"),
+    "optim/schedules.py": ("cosine", "wsd"),
+    "launch/steps.py": ("make_train_step.train_step",),
 }
 #: files under a hot fragment that run no launch
 COLD = ("kernels/build.py",)

@@ -11,7 +11,9 @@ that one tensor and one set of factors can be fed to both packages:
                          [(l.block_ids, l.start, l.end) for l in ref.launches])
 
 and the decoder LM's parameters both ways (``params_from_jax``,
-``params_to_jax``).
+``params_to_jax``), and its train state with them
+(``train_state_from_jax``, ``train_state_to_jax``), which the
+checkpoints write and read.
 """
 from __future__ import annotations
 
@@ -85,6 +87,33 @@ def _flatten(tree, prefix=()):
             yield prefix + (name,), value
 
 
+def _unstacked(tree) -> dict:
+    """The reference's nested dict of arrays as CPU tensors by state-dict
+    name (copies), each stacked (L, ...) leaf split per layer."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        arr = torch.from_numpy(np.array(leaf))
+        if path[0] in STACKED:
+            for i in range(arr.shape[0]):
+                out[".".join((path[0], str(i)) + path[1:])] = arr[i]
+        else:
+            out[".".join(path)] = arr
+    return out
+
+
+def _check_like(got: dict, want: dict, what: str) -> None:
+    """``got`` holds ``want``'s names, shapes and dtypes, or raise."""
+    if set(got) != set(want):
+        raise ValueError(f"the tree's leaves differ from {what}'s: "
+                         f"missing {sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}")
+    for key, t in want.items():
+        if got[key].shape != t.shape or got[key].dtype != t.dtype:
+            raise ValueError(f"{key}: {tuple(got[key].shape)} "
+                             f"{got[key].dtype}, {what} holds "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
 def params_from_jax(cfg, tree, *, device=DEFAULT_DEVICE):
     """The port's model of ``cfg`` holding the reference's parameters.
 
@@ -94,46 +123,93 @@ def params_from_jax(cfg, tree, *, device=DEFAULT_DEVICE):
     missing, extra or mis-shaped leaf raises."""
     dev = resolve_device(device)
     model = transformer.init_params(cfg, device=dev, generator=None)
-    state = {}
-    for path, leaf in _flatten(tree):
-        arr = torch.from_numpy(np.array(leaf))
-        if path[0] in STACKED:
-            for i in range(arr.shape[0]):
-                state[".".join((path[0], str(i)) + path[1:])] = arr[i]
-        else:
-            state[".".join(path)] = arr
-    want = model.state_dict()
-    if set(state) != set(want):
-        raise ValueError(f"the tree's leaves differ from {cfg.name}'s: "
-                         f"missing {sorted(set(want) - set(state))}, extra "
-                         f"{sorted(set(state) - set(want))}")
-    for key, t in want.items():
-        if state[key].shape != t.shape or state[key].dtype != t.dtype:
-            raise ValueError(f"{key}: {tuple(state[key].shape)} "
-                             f"{state[key].dtype}, the model holds "
-                             f"{tuple(t.shape)} {t.dtype}")
+    state = _unstacked(tree)
+    _check_like(state, model.state_dict(), cfg.name)
     model.load_state_dict(state)
     return model
 
 
-def params_to_jax(model) -> dict:
-    """The inverse: the model's parameters as the reference's pytree of
-    numpy arrays, each layer group stacked on a leading axis."""
+def _host(t):
+    """A tensor as a numpy array on the host; a meta tensor stays as it
+    is (its shape is all a ``like`` tree needs)."""
+    return t if t.is_meta else t.detach().cpu().numpy()
+
+
+def _tree(named: dict, *, stack: bool = True) -> dict:
+    """Tensors by dotted name as the reference's nested dict of numpy
+    arrays, each layer group's per-layer tensors stacked on a leading
+    axis (with ``stack``)."""
     tree: dict = {}
-    for key, t in model.state_dict().items():
+    for key, t in named.items():
         *path, leaf = key.split(".")
         node = tree
         for name in path:
             node = node.setdefault(name, {})
-        node[leaf] = t.detach().cpu().numpy()
+        node[leaf] = t
     for group in STACKED:
-        if group in tree:
+        if stack and group in tree:
             tree[group] = _stack([tree[group][str(i)]
                                   for i in range(len(tree[group]))])
-    return tree
+    return _map(tree, _host)
 
 
 def _stack(trees):
     first = trees[0]
     return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
-            else np.stack([t[k] for t in trees]) for k in first}
+            else torch.stack([t[k] for t in trees]) for k in first}
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def params_to_jax(model) -> dict:
+    """The inverse: the model's parameters as the reference's pytree of
+    numpy arrays, each layer group stacked on a leading axis."""
+    return _tree(model.state_dict())
+
+
+# the optimizer state's leaves that mirror the parameters
+MOMENTS = ("m", "v", "v_q")
+
+
+def train_state_to_jax(state) -> dict:
+    """A train state ``{"params": model, "opt": {"step", "m", "v" | "v_q",
+    "v_scale"}}`` as the reference's pytree of numpy arrays, stacked as
+    ``params_to_jax`` stacks the parameters (``v_scale`` holds one scalar
+    per reference leaf already).  A state on the meta device gives its
+    shapes: the ``like`` tree of ``train.checkpoint.restore``."""
+    opt = state["opt"]
+    out = {"step": _host(opt["step"])}
+    for k in MOMENTS:
+        if k in opt:
+            out[k] = _tree(opt[k])
+    if "v_scale" in opt:
+        out["v_scale"] = _tree(opt["v_scale"], stack=False)
+    return {"params": params_to_jax(state["params"]), "opt": out}
+
+
+def train_state_from_jax(cfg, tree, *, device=DEFAULT_DEVICE) -> dict:
+    """The inverse: the reference's train state (nested dicts of numpy
+    arrays, as ``jax.tree.map(np.asarray, state)`` or a checkpoint's
+    restore gives it) as the port's, on ``device``; every leaf is copied
+    and checked against the model's parameters."""
+    model = params_from_jax(cfg, tree["params"], device=device)
+    dev = model.embed.table.device
+    params = dict(model.named_parameters())
+    opt = tree["opt"]
+    out = {"step": torch.from_numpy(np.array(opt["step"], np.int32)).to(dev)}
+    for k in MOMENTS:
+        if k in opt:
+            named = _unstacked(opt[k])
+            want = params if k != "v_q" else {
+                n: p.to(dtype=torch.int8, device="meta")
+                for n, p in params.items()}
+            _check_like(named, want, f"{cfg.name}'s {k}")
+            out[k] = {n: named[n].to(dev) for n in params}
+    if "v_scale" in opt:
+        out["v_scale"] = {".".join(path): torch.from_numpy(
+            np.array(leaf, np.float32)).to(dev)
+            for path, leaf in _flatten(opt["v_scale"])}
+    return {"params": model, "opt": out}

@@ -1,8 +1,9 @@
 """Family dispatch: the port's counterpart of ``repro.models.model``.
 
 ``build_model`` returns the model's parameters as a module whose
-``forward``, ``init_cache`` and ``decode_step`` run under its config
-(the reference returns a ``Model`` of functions over a params pytree).
+``forward``, ``loss``, ``init_cache`` and ``decode_step`` run under its
+config (the reference returns a ``Model`` of functions over a params
+pytree; ``Model.loss`` is ``Transformer.loss`` here).
 The dense and vlm families are ported; the others raise
 ``NotImplementedError`` (ROADMAP queue 1, 13.4).
 """

@@ -14,7 +14,10 @@ another config's compute dtype; ``Transformer``'s methods call them with
 its own config.  The reference's ``constrain`` anchors are no-ops without
 a mesh and are left out on one card (the mesh substrate is ROADMAP
 queue 1, 13.5); the MoE, SSM, hybrid and enc-dec families raise
-``NotImplementedError`` (13.4), and the loss belongs to training (13.3).
+``NotImplementedError`` (13.4).  Training's loss is here too
+(``parallel_cross_entropy``, ``loss_fn``), and ``forward`` runs each
+layer under ``torch.utils.checkpoint`` when gradients are on, the
+reference's ``jax.checkpoint`` around its scan body (``_remat``).
 
 The token embedding uses ``repro_torch.core.embedding_lookup`` — the
 paper's sort+segment conflict resolution on the embedding-gradient MTTKRP
@@ -22,9 +25,12 @@ paper's sort+segment conflict resolution on the embedding-gradient MTTKRP
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.embed_grad import embedding_lookup
 
@@ -112,6 +118,9 @@ class Transformer(nn.Module):
     def forward(self, batch, *, impl: str | None = None):
         return forward(self, self.cfg, batch, impl=impl)
 
+    def loss(self, batch):
+        return loss_fn(self, self.cfg, batch)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         return init_cache(self.cfg, batch, max_len, dtype,
                           device=self.embed.table.device)
@@ -124,6 +133,48 @@ def init_params(cfg, *, device=None, generator=None) -> Transformer:
     """The model's parameters on ``device``, drawn from ``generator``
     (left unset without one, for a caller that loads them)."""
     return Transformer(cfg, device=device, generator=generator)
+
+
+def with_params(model, params: dict) -> Transformer:
+    """A model of ``model``'s config holding ``params`` (state-dict names
+    to tensors, taken as they are, not copied) and ``model``'s rotary
+    buffers: the out-of-place train step's new model."""
+    new = Transformer(model.cfg, device="meta", generator=None)
+    new.load_state_dict(params, assign=True)
+    for name, buf in model.named_buffers():
+        module, _, attr = name.rpartition(".")
+        setattr(new.get_submodule(module), attr, buf)
+    return new
+
+
+#: the ops whose outputs each ``remat_policy`` keeps for the backward,
+#: as ``jax.checkpoint_policies`` name them: a dot with batch dims is an
+#: ``aten.bmm`` here (the attention einsums), one without an ``aten.mm``
+#: (every ``linear``); all else is recomputed
+_SAVED_OPS = {
+    "nothing_saveable": (),
+    "dots_saveable": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "dots_with_no_batch_dims_saveable": (torch.ops.aten.mm.default,),
+}
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``torch.utils.checkpoint`` when gradients are on, the
+    reference's ``jax.checkpoint(fn, policy=...)``: the backward recomputes
+    what ``cfg.remat_policy`` does not save.  With gradients off, ``fn``
+    itself.  The layers draw no random numbers, so no RNG state is kept."""
+    saved = _SAVED_OPS[cfg.remat_policy]
+    context_fn = functools.partial(
+        ckpt.create_selective_checkpoint_contexts, list(saved)) if saved \
+        else ckpt.noop_context_fn
+
+    def run(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=context_fn, **kw)
+    return run
 
 
 def _embed_in(p, cfg, batch, compute_dtype):
@@ -161,10 +212,33 @@ def forward(params, cfg, batch, *, impl: str | None = None):
     if impl is None:
         impl = "chunked" if s > 8192 else "full"
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    layer = _remat(dense_layer_apply, cfg)
     for lp in params.dense_layers:
-        x = dense_layer_apply(lp, cfg, x, positions, impl=impl)
+        x = layer(lp, cfg, x, positions, impl=impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, cfg, x), aux
+
+
+def parallel_cross_entropy(logits, labels):
+    """Per-position cross entropy, written as the reference writes it for
+    a vocab-sharded tensor: ``logsumexp`` minus the logit picked by a
+    comparison with an int32 iota (no gather), so the two packages round
+    the same sums.  logits: (B, S, V) f32; labels: (B, S) int."""
+    lse = torch.logsumexp(logits, dim=-1)                       # (B,S)
+    vocab_iota = torch.arange(logits.shape[-1], dtype=torch.int32,
+                              device=logits.device)
+    picked = torch.where(vocab_iota == labels[..., None], logits,
+                         0.0).sum(dim=-1)                       # (B,S)
+    return lse - picked
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE + the MoE aux loss (0 here). batch needs "labels":
+    (B,S) int. Returns (loss, {"nll", "aux"})."""
+    logits, aux = forward(params, cfg, batch)
+    nll = parallel_cross_entropy(logits, batch["labels"])
+    loss = nll.mean() + 0.01 * aux
+    return loss, {"nll": nll.mean(), "aux": aux}
 
 
 # ------------------------------------------------------------------- decode

@@ -423,6 +423,50 @@ def test_host_sync_twin_covers_the_decode_bodies():
         ("transformer.py", "decode_step")]
 
 
+BAD_TRAIN = {
+    "src/repro_torch/optim/adamw.py": '''
+def apply_updates(params, grads, state, cfg):
+    return float(state["step"].item())
+
+
+def _global_norm(grads):
+    return sum(g.square().sum().tolist() for g in grads.values())
+
+
+def init_state(params, cfg):
+    return {"step": params["w"].cpu()}
+''',
+    "src/repro_torch/optim/schedules.py": '''
+def wsd(step, *, peak_lr, warmup, total):
+    return peak_lr if bool(step < warmup) else 0.0
+''',
+    "src/repro_torch/launch/steps.py": '''
+def make_train_step(cfg, opt_cfg):
+    def train_step(state, batch):
+        return state, {"loss": batch["labels"].numpy()}
+    return train_step
+''',
+    "src/repro_torch/models/transformer.py": '''
+def parallel_cross_entropy(logits, labels):
+    return logits[labels.cpu()]
+
+
+def forward(params, cfg, batch):
+    return batch["tokens"].tolist()
+''',
+}
+
+
+def test_host_sync_twin_covers_the_train_step_bodies():
+    """The train step, AdamW's step and norm, the schedules and the loss
+    are hot; ``init_state`` and the prefill ``forward`` are not."""
+    found = _only(lint_sources(BAD_TRAIN), "host-sync-in-hot-path")
+    assert sorted((f.path.rsplit("/", 1)[-1], f.symbol) for f in found) == [
+        ("adamw.py", "_global_norm"), ("adamw.py", "apply_updates"),
+        ("schedules.py", "wsd"), ("steps.py", "make_train_step.train_step"),
+        ("transformer.py", "parallel_cross_entropy")]
+
+
 # the streamed put time as it once was: the clock ran around the wait for
 # the host set, its fill and the asynchronous copy, with no fence
 BAD_PUT_TIME = '''

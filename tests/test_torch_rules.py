@@ -37,7 +37,11 @@ def test_port_files_exist():
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/serving/decode.py",
-                 "src/repro_torch/examples/serve_lm.py", "chip_smoke.py"):
+                 "src/repro_torch/examples/serve_lm.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/train/trainer.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/examples/train_lm.py", "chip_smoke.py"):
         assert want in names
 
 
