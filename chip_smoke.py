@@ -181,6 +181,22 @@ Phases, each of which exits non-zero when it fails:
    the NaN guard skips, the directory deleted and the held bytes back;
    ``python -m repro_torch.examples.train_lm`` at its reference sizes;
    no kernel of K1-K5 launched;
+[families] the MoE (with MLA), SSM, hybrid and enc-dec families: mamba2-370m,
+   zamba2-1.2b and seamless-m4t-large-v2 at full width and depth,
+   deepseek-v2-236b (MLA, all 160 experts) and dbrx-132b at full width
+   over 2 layers, each drawn on the card: decode against the forward in
+   f32 (2e-3; the MoE at capacity_factor E / k), ``Server.generate`` in
+   bf16 twice (tokens bitwise equal), the time to first token (seamless's
+   memory prefilled from (2, 64, 1024) seeded frames), the median decode
+   step by CUDA events, one step under ``set_sync_debug_mode("error")``,
+   parameter, cache and peak bytes; one config per family at 2 layers
+   (zamba2 4 at every 2, deepseek 32 experts) on the card against the
+   CPU (1e-4 f32, 2e-2 bf16, the router's differing picks counted); four
+   trained 3 in-place steps (mamba2, zamba2, seamless at (1, 4096),
+   deepseek with 32 experts at (1, 2048)): loss, grad norm, lr against
+   the host's cosine, step ms, tokens/s, peak; zamba2's train state at 4
+   layers saved and restored through ``train/checkpoint.py`` bitwise;
+   device memory back where it was and no kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -3496,6 +3512,445 @@ def train_phase(dev) -> None:
     say(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# -------------------------------------------------------------- [families]
+# the MoE (with MLA), SSM, hybrid and enc-dec families on the card.
+# Served: (arch, layers or None for full depth, expected parameters).
+# deepseek and dbrx keep their full widths with the depth cut to 2 layers
+# (deepseek: the dense first layer, then one MoE layer of all 160 experts
+# with MLA); the others run at full width and depth
+FAMILY_SERVE = (("mamba2-370m", None, 368_494_080),
+                ("zamba2-1.2b", None, 1_097_597_824),
+                ("seamless-m4t-large-v2", None, 1_370_875_904),
+                ("deepseek-v2-236b", 2, 5_358_679_040),
+                ("dbrx-132b", 2, 7_751_301_120))
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 2, 8, 16
+ENC_FRAMES = 64             # seamless's memory: (B, 64, 1024) seeded frames
+# card vs CPU on the same weights, one config per family at 2 layers: the
+# hybrid at 4 layers every 2 (at 2 layers and every 6 it has no group,
+# hence no shared block: 4 at every 2 is the least cut with two groups of
+# two, both stacking axes above 1), the MoE with its routed experts cut
+# from 160 to 32
+FAMILY_CARD_CPU = (("mamba2-370m", dict(num_layers=2)),
+                   ("zamba2-1.2b", dict(num_layers=4, shared_attn_every=2)),
+                   ("seamless-m4t-large-v2", dict(num_layers=2,
+                                                  encoder_layers=2)),
+                   ("deepseek-v2-236b", dict(num_layers=2, num_experts=32)))
+# trained in place (donate=True) at the reference's train_4k sequence with
+# its global batch cut to 1; deepseek at 2 layers with 32 routed experts
+# (with all 160 its f32 parameters, gradients, m and v are 85.7 GB, above
+# the card's 80 GB) and at 2048 positions (MLA's 128 materialized f32
+# score heads are 2.1 GB a tensor there); dbrx is served only (its train
+# state at 2 layers is 124 GB)
+FAMILY_TRAIN = (("mamba2-370m", {}, (1, 4096)),
+                ("zamba2-1.2b", {}, (1, 4096)),
+                ("seamless-m4t-large-v2", {}, (1, 4096)),
+                ("deepseek-v2-236b", dict(num_layers=2, num_experts=32),
+                 (1, 2048)))
+FAMILY_STEPS = 3
+FAMILY_OPT = dict(peak_lr=3e-4, warmup=2, total_steps=FAMILY_STEPS)
+HYBRID_CUT = dict(num_layers=4, shared_attn_every=2)
+FAMILY_CKPT_DIR = os.path.join(ROOT, "build", "families")
+
+
+def host_cosine(step, *, peak_lr, warmup, total_steps,
+                final_frac=0.1) -> float:
+    """The cosine schedule in float64 on the host (the device's is f32)."""
+    if step < warmup:
+        return peak_lr * step / max(1, warmup)
+    frac = min(max((step - warmup) / max(1, total_steps - warmup), 0.0), 1.0)
+    return peak_lr * (final_frac + (1 - final_frac) * 0.5
+                      * (1 + math.cos(math.pi * frac)))
+
+
+def family_cfg(arch, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def family_batch(cfg, b, s, dev, seed=SEED) -> dict:
+    """Seeded tokens (and, for the enc-dec, ``ENC_FRAMES`` frame
+    embeddings) on ``dev``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)}
+    if cfg.is_encdec:
+        out["embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, ENC_FRAMES, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    return out
+
+
+def family_cache(model, cfg, b, max_len, dtype, batch):
+    """``cfg``'s decode cache for ``model`` (the enc-dec's memory filled by
+    ``prefill_memory`` from the batch's frames)."""
+    from repro_torch.models import encdec, transformer
+    dev = model.embed.table.device
+    if cfg.is_encdec:
+        cache = encdec.init_cache(cfg, b, max_len, ENC_FRAMES, dtype,
+                                  device=dev)
+        return encdec.prefill_memory(model, cfg, cache, batch["embeds"])
+    return transformer.init_cache(cfg, b, max_len, dtype, device=dev)
+
+
+def consistency_cfg(cfg):
+    """f32 compute and, for the MoE, a capacity no expert's load can pass
+    (capacity_factor >= E / k gives cap >= t at decode's t = B tokens as
+    in the forward), the reference's consistency settings."""
+    import dataclasses
+    changes = dict(compute_dtype="float32")
+    if cfg.moe:
+        changes["capacity_factor"] = max(cfg.capacity_factor,
+                                         cfg.num_experts / cfg.top_k)
+    return dataclasses.replace(cfg, **changes)
+
+
+def family_decode_vs_forward(model, cfg, dev, tag) -> None:
+    import torch
+    from repro_torch.models.model import family
+    c32 = consistency_cfg(cfg)
+    b, s = CONSISTENCY
+    batch = family_batch(cfg, b, s, dev)
+    fam = family(cfg)
+    with torch.no_grad():
+        ref, _ = fam.forward(model, c32, batch)
+    cache = family_cache(model, c32, b, s, torch.float32, batch)
+    dec = torch.cat([fam.decode_step(model, c32, cache,
+                                     batch["tokens"][:, t:t + 1], t)[0]
+                     for t in range(s)], dim=1)
+    rel = rel_err(dec, ref)
+    say(f"[families] {tag}: decode vs forward, f32, B {b}, S {s}"
+        f"{', capacity_factor ' + str(c32.capacity_factor) if cfg.moe else ''}"
+        f": max|d|/max|ref| {rel:.3e} (bound {CONSISTENCY_TOL})")
+    if not rel < CONSISTENCY_TOL:
+        raise AssertionError(f"[families] {tag}: decode vs forward {rel:.3e}")
+
+
+def family_generate(model, cfg, dev, tag) -> np.ndarray:
+    """``Server.generate`` (the config's bf16, greedy) twice: the tokens
+    must be equal bit for bit (the MoE's combine is gathers, no atomics)."""
+    import torch
+    from repro_torch.serving import ServeConfig, Server
+    srv = Server(cfg, ServeConfig(max_len=FAMILY_PROMPT + FAMILY_NEW), model,
+                 device=dev)
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT)).astype(np.int32)
+    outs, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(srv.generate(prompts, FAMILY_NEW))
+        secs.append(time.perf_counter() - t0)
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError(f"[families] {tag}: two greedy runs differ: "
+                             f"{outs[0].tolist()} vs {outs[1].tolist()}")
+    if not ((outs[0] >= 0) & (outs[0] < cfg.padded_vocab)).all():
+        raise AssertionError(f"[families] {tag}: tokens {outs[0].tolist()}")
+    say(f"[families] {tag}: Server.generate {FAMILY_BATCH} x "
+        f"({FAMILY_PROMPT} + {FAMILY_NEW}), {cfg.compute_dtype}, greedy"
+        f"{' (the server zeroes the enc-dec memory)' if cfg.is_encdec else ''}"
+        f", twice: {secs[0]:.3f} s and {secs[1]:.3f} s, tokens bitwise equal;"
+        f" row 0: {outs[0][0].tolist()}")
+    return prompts
+
+
+def family_timing(model, cfg, dev, prompts) -> dict:
+    """The serving loop over a cache of the config's bf16 (the enc-dec's
+    memory filled from seeded frames first, inside the time to first
+    token): the prefill to the first token on the host, each later decode
+    step between CUDA events; then one decode step per config under
+    ``torch.cuda.set_sync_debug_mode("error")``, which refuses any host
+    read."""
+    import statistics
+    import torch
+    b, plen = prompts.shape
+    toks = torch.from_numpy(prompts).to(dev)
+    batch = family_batch(cfg, b, plen, dev, seed=SEED + 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = family_cache(model, cfg, b, plen + FAMILY_NEW, torch.bfloat16,
+                             batch)
+        for t in range(plen):
+            logits, _ = model.decode_step(cache, toks[:, t:t + 1], t)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        tok.cpu()
+        ttft = time.perf_counter() - t0
+        steps = []
+        for i in range(FAMILY_NEW - 1):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, _ = model.decode_step(cache, tok, plen + i)
+            stop.record()
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            tok.cpu()
+            steps.append(start.elapsed_time(stop))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(cache, tok, plen + FAMILY_NEW - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    cache_bytes = sum(t.numel() * t.element_size() for t in
+                      _tensors(cache))
+    return {"ttft_s": ttft, "step_ms": statistics.median(steps),
+            "step_min_ms": min(steps), "cache_bytes": cache_bytes}
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
+def family_serve(arch, layers, want, dev) -> None:
+    import torch
+    from repro_torch.models import build_model, param_count
+    cfg = family_cfg(arch, **({"num_layers": layers} if layers else {}))
+    tag = f"{cfg.name} x {cfg.num_layers} layers" + (
+        f" (+ {cfg.encoder_layers} encoder)" if cfg.is_encdec else "")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n = param_count(model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"[families] {tag} ({cfg.family}): {n:,} parameters, {nbytes:,} B "
+        f"({cfg.param_dtype}), drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n != want:
+        raise AssertionError(f"[families] {tag}: {n} parameters, expected "
+                             f"{want}")
+    family_decode_vs_forward(model, cfg, dev, tag)
+    prompts = family_generate(model, cfg, dev, tag)
+    tm = family_timing(model, cfg, dev, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[families] {tag}: time to first token ({FAMILY_PROMPT}-token "
+        f"prefill{', ' + str(ENC_FRAMES) + '-frame prefill_memory' if cfg.is_encdec else ''}, "
+        f"batch {FAMILY_BATCH}) {tm['ttft_s'] * 1e3:.2f} ms; decode step "
+        f"median {tm['step_ms']:.3f} ms (min {tm['step_min_ms']:.3f}; CUDA "
+        f"events, {FAMILY_NEW - 1} steps), "
+        f"{FAMILY_BATCH * 1e3 / tm['step_ms']:.1f} tokens/s at that step "
+        f"time; one step under set_sync_debug_mode('error'): no host read; "
+        f"parameters {nbytes:,} B, cache {tm['cache_bytes']:,} B (bf16"
+        f"{'; the SSM conv ring and state f32' if cfg.ssm_state else ''}); "
+        f"peak max_memory_allocated {peak:,} B "
+        f"({peak - before:,} B above the {before:,} B before)")
+    del model
+
+
+def family_card_vs_cpu(arch, changes, dev) -> None:
+    """One config at its cut drawn on the card and copied to the host:
+    the forward's logits on both, f32 and bf16.  For the MoE in bf16, the
+    router's picks are compared too (a last-bit difference can pick
+    another expert: such flips are counted and printed)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.model import family, init_params
+    cfg = family_cfg(arch, **changes)
+    tag = f"{cfg.name} {changes}"
+    card = build_model(cfg, device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED + 4))
+    cpu = init_params(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    b, s = CONSISTENCY
+    batch = family_batch(cfg, b, s, "cpu", seed=SEED + 2)
+    fam = family(cfg)
+    picks = {}
+    apply = moe.moe_apply
+
+    def recording(p, c, x):
+        picks.setdefault(x.device.type, []).append(torch.topk(torch.softmax(
+            x.reshape(-1, c.d_model).float() @ p.router.w.float(), dim=-1),
+            c.top_k, dim=-1)[1].cpu())
+        return apply(p, c, x)
+    for cd, tol in CARD_CPU_TOL.items():
+        c = dataclasses.replace(cfg, compute_dtype=cd)
+        picks.clear()
+        moe.moe_apply = recording
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad():
+                got, _ = fam.forward(card, c, {k: v.to(dev)
+                                               for k, v in batch.items()})
+                want, _ = fam.forward(cpu, c, batch)
+            torch.cuda.synchronize()
+        finally:
+            moe.moe_apply = apply
+        secs = time.perf_counter() - t0
+        rel = rel_err(got, want)
+        flips = sum(int((a != b_).any(dim=-1).sum()) for a, b_ in
+                    zip(picks.get("cuda", []), picks.get("cpu", [])))
+        note = f"; router picks differing in {flips} tokens" \
+            if cfg.moe else ""
+        say(f"[families] card vs CPU, {tag}, {cd}: logits max|d|/max|ref| "
+            f"{rel:.3e} (bound {tol}{note}; both forwards {secs:.2f} s)")
+        if not rel <= tol and not flips:
+            raise AssertionError(f"[families] card vs CPU, {tag}, {cd}: "
+                                 f"{rel:.3e}")
+    del card, cpu
+
+
+def family_train(arch, changes, shape, dev) -> None:
+    """``FAMILY_STEPS`` in-place steps at full width: bytes, each step's
+    loss, grad norm and lr (against the host's schedule), step ms by CUDA
+    events, tokens/s, the peak memory."""
+    import statistics
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, param_count
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import put_batch
+    cfg = family_cfg(arch, **changes)
+    b, s = shape
+    tag = f"{cfg.name} x {cfg.num_layers} layers" + (
+        f" (+ {cfg.encoder_layers} encoder)" if cfg.is_encdec else "") + (
+        f", {cfg.num_experts} routed experts" if cfg.moe else "")
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **FAMILY_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    pbytes, obytes = train_state_bytes(state)
+    say(f"[families] train {tag}: {param_count(model):,} parameters, "
+        f"{pbytes:,} B of f32 parameters and {obytes:,} B of m and v; "
+        f"schedule {cfg.schedule} {FAMILY_OPT}, compute {cfg.compute_dtype},"
+        f" remat {cfg.remat_policy}, (B, S) = ({b}, {s})")
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=b, seq_len=s,
+        input_mode=cfg.input_mode, frontend_dim=cfg.frontend_dim
+        or cfg.d_model, encdec=cfg.is_encdec))
+    step_fn = steps.make_train_step(cfg, opt_cfg, donate=True)
+    dev_ms = []
+    for i in range(FAMILY_STEPS):
+        batch = put_batch(data.batch_at(i), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, met = step_fn(state, batch)
+        stop.record()
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(stop))
+        gnorm, lr = float(met["grad_norm"]), float(met["lr"])
+        want = host_cosine(i + 1, **{k: getattr(opt_cfg, k) for k in
+                                     ("peak_lr", "warmup", "total_steps")})
+        say(f"[families] train {tag}: step {i + 1}: loss {loss:.6f}, aux "
+            f"{float(met['aux']):.6f}, grad norm {gnorm:.6f}, lr {lr:.6e} "
+            f"(host schedule {want:.6e}), {dev_ms[-1]:.3f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"[families] {tag} step {i + 1}: loss "
+                                 f"{loss}, grad norm {gnorm}")
+        if not abs(lr - want) <= LR_TOL * want:
+            raise AssertionError(f"[families] {tag} step {i + 1}: lr {lr}, "
+                                 f"the host's {want}")
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(dev_ms[1:])
+    say(f"[families] train {tag}: step ms by CUDA events "
+        f"{[round(t, 3) for t in dev_ms]} (median of steps 2-{FAMILY_STEPS} "
+        f"{med:.3f}; step 1 includes the first calls' set-up), "
+        f"{b * s / med * 1e3:.1f} tokens/s; peak max_memory_allocated "
+        f"{peak:,} B ({peak - before:,} B above the {before:,} B before)")
+    del state, model, met, batch
+
+
+def hybrid_round_trip(dev) -> None:
+    """zamba2's train state at ``HYBRID_CUT`` after one in-place step,
+    saved and restored through ``train/checkpoint.py`` (the reference's
+    layout: ``group_layers`` stacked on two axes), bitwise."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import put_batch
+    cfg = family_cfg("zamba2-1.2b", **HYBRID_CUT)
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **FAMILY_OPT)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 5))
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    batch = put_batch(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=1, seq_len=256)).batch_at(0),
+        dev)
+    state, _ = steps.make_train_step(cfg, opt_cfg, donate=True)(state, batch)
+    shutil.rmtree(FAMILY_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    host = convert.train_state_to_jax(state)
+    ckpt.save(FAMILY_CKPT_DIR, 1, host)
+    save_s = time.perf_counter() - t0
+    stacked = host["params"]["group_layers"]["mamba"]["A_log"].shape
+    meta = init_params(cfg, device="meta")
+    like = convert.train_state_to_jax(
+        {"params": meta, "opt": adamw.init_state(meta, opt_cfg)})
+    t0 = time.perf_counter()
+    step, restored = ckpt.restore_latest(FAMILY_CKPT_DIR, like)
+    back = convert.train_state_from_jax(cfg, restored, device=dev)
+    load_s = time.perf_counter() - t0
+    restored_params = dict(back["params"].named_parameters())
+    pairs = [(f"params.{k}", v, restored_params[k])
+             for k, v in state["params"].named_parameters()]
+    for kind in ("m", "v"):
+        pairs += [(f"{kind}.{k}", v, back["opt"][kind][k])
+                  for k, v in state["opt"][kind].items()]
+    differ = [k for k, a, b_ in pairs if not torch.equal(a, b_)]
+    nbytes = sum(a.numel() * a.element_size() for _, a, _ in pairs)
+    say(f"[families] zamba2 train state {HYBRID_CUT} at full width, after "
+        f"one step: saved ({nbytes:,} B in {save_s:.2f} s; group_layers' "
+        f"mamba.A_log stacked {tuple(stacked)}) and "
+        f"restored (step {step}, {load_s:.2f} s) through "
+        f"train/checkpoint.py: {len(pairs)} tensors, {len(differ)} differ")
+    if differ or step != 1 or int(back["opt"]["step"]) != 1:
+        raise AssertionError(f"[families] the round trip differs: "
+                             f"{differ[:5]}")
+    del state, back, model
+    shutil.rmtree(FAMILY_CKPT_DIR)
+
+
+def families_phase(dev) -> None:
+    """The ``[families]`` phase: the five configs of the MoE (with MLA),
+    SSM, hybrid and enc-dec families served at full width, four of them
+    trained, the card against the CPU for one config per family, the
+    hybrid's checkpoint round trip; device memory back where it was."""
+    import torch
+    t_phase = time.perf_counter()
+    held = held_bytes()
+    for arch, layers, want in FAMILY_SERVE:
+        t0 = time.perf_counter()
+        family_serve(arch, layers, want, dev)
+        torch.cuda.empty_cache()
+        say(f"[families] serve {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for arch, changes in FAMILY_CARD_CPU:
+        family_card_vs_cpu(arch, changes, dev)
+    torch.cuda.empty_cache()
+    say(f"[families] card vs CPU: {time.perf_counter() - t0:.1f} s")
+    for arch, changes, shape in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        family_train(arch, changes, shape, dev)
+        torch.cuda.empty_cache()
+        say(f"[families] train {arch}: {time.perf_counter() - t0:.1f} s")
+    hybrid_round_trip(dev)
+    after = held_bytes()
+    if after != held:
+        raise AssertionError(f"[families] left pinned and allocated bytes "
+                             f"{after}, found {held}")
+    say(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -3822,6 +4277,12 @@ def main() -> int:
     if any(launch_counts.values()):
         raise AssertionError(f"[train] launched {dict(launch_counts)}; the "
                              f"training path runs no kernel of this port")
+    reset_launch_counts()
+    families_phase(dev)
+    say(f"[families] kernel launches of the phase: {dict(launch_counts)}")
+    if any(launch_counts.values()):
+        raise AssertionError(f"[families] launched {dict(launch_counts)}; "
+                             f"these families run no kernel of this port")
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

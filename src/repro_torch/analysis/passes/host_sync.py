@@ -53,7 +53,10 @@ HOT = {
     "kernels/": ("*",),
     "models/transformer.py": ("*decode_step", "parallel_cross_entropy",
                               "loss_fn"),
-    "models/attention.py": ("gqa_decode", "_full_attn"),
+    "models/attention.py": ("gqa_decode", "mla_decode", "_full_attn"),
+    "models/moe.py": ("moe_layer", "moe_apply", "_combine"),
+    "models/ssm.py": ("mamba2_decode",),
+    "models/encdec.py": ("decode_step", "loss_fn"),
     "optim/adamw.py": ("apply_updates", "_global_norm", "_quant",
                        "_dequant"),
     "optim/schedules.py": ("cosine", "wsd"),

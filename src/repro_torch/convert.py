@@ -24,7 +24,7 @@ from repro_torch.core import linearize as lin
 from repro_torch.core.blco import Block, BLCOTensor, Launch
 from repro_torch.core.cp_als import CPState
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import model as model_mod
 
 
 def blco_from_arrays(dims, field_bits, field_shift, block_bits, idx_hi,
@@ -75,8 +75,11 @@ def cpstate_from_numpy(*, dims, rank: int, norm_x: float, tol: float,
                    converged=bool(converged))
 
 
-# the reference stacks each layer group's leaves on a leading axis
-STACKED = ("dense_layers",)
+# the reference stacks each layer group's leaves on leading axes, one per
+# group but two for the hybrid's (groups, layers per group)
+STACKED = {"dense_layers": 1, "moe_layers": 1, "ssm_layers": 1,
+           "pre_layers": 1, "group_layers": 2, "site_lora": 1,
+           "enc_layers": 1, "dec_layers": 1}
 
 
 def _flatten(tree, prefix=()):
@@ -89,15 +92,16 @@ def _flatten(tree, prefix=()):
 
 def _unstacked(tree) -> dict:
     """The reference's nested dict of arrays as CPU tensors by state-dict
-    name (copies), each stacked (L, ...) leaf split per layer."""
+    name (copies), each stacked leaf split on its group's leading axes:
+    ``(L, ...)`` into ``<group>.<i>...``, the hybrid's ``(G, K, ...)`` into
+    ``group_layers.<g>.<i>...``."""
     out = {}
     for path, leaf in _flatten(tree):
         arr = torch.from_numpy(np.array(leaf))
-        if path[0] in STACKED:
-            for i in range(arr.shape[0]):
-                out[".".join((path[0], str(i)) + path[1:])] = arr[i]
-        else:
-            out[".".join(path)] = arr
+        axes = STACKED.get(path[0], 0)
+        for index in np.ndindex(*arr.shape[:axes]):
+            out[".".join((path[0],) + tuple(map(str, index)) + path[1:])
+                if axes else ".".join(path)] = arr[index]
     return out
 
 
@@ -122,7 +126,7 @@ def params_from_jax(cfg, tree, *, device=DEFAULT_DEVICE):
     leaf is split per layer; every array is copied with its dtype, and a
     missing, extra or mis-shaped leaf raises."""
     dev = resolve_device(device)
-    model = transformer.init_params(cfg, device=dev, generator=None)
+    model = model_mod.init_params(cfg, device=dev, generator=None)
     state = _unstacked(tree)
     _check_like(state, model.state_dict(), cfg.name)
     model.load_state_dict(state)
@@ -137,8 +141,8 @@ def _host(t):
 
 def _tree(named: dict, *, stack: bool = True) -> dict:
     """Tensors by dotted name as the reference's nested dict of numpy
-    arrays, each layer group's per-layer tensors stacked on a leading
-    axis (with ``stack``)."""
+    arrays, each layer group's per-layer tensors stacked on its leading
+    axes (with ``stack``)."""
     tree: dict = {}
     for key, t in named.items():
         *path, leaf = key.split(".")
@@ -146,11 +150,19 @@ def _tree(named: dict, *, stack: bool = True) -> dict:
         for name in path:
             node = node.setdefault(name, {})
         node[leaf] = t
-    for group in STACKED:
+    for group, axes in STACKED.items():
         if stack and group in tree:
-            tree[group] = _stack([tree[group][str(i)]
-                                  for i in range(len(tree[group]))])
+            tree[group] = _stacked(tree[group], axes)
     return _map(tree, _host)
+
+
+def _stacked(node: dict, axes: int) -> dict:
+    """``node``'s children ``"0"``, ``"1"``, ... stacked on ``axes``
+    leading axes, the innermost first."""
+    items = [node[str(i)] for i in range(len(node))]
+    if axes > 1:
+        items = [_stacked(item, axes - 1) for item in items]
+    return _stack(items)
 
 
 def _stack(trees):

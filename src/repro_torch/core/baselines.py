@@ -24,6 +24,7 @@ same dense oracle.  An empty tensor gives a zero output in every format.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -159,6 +160,22 @@ def fcoo_mttkrp(fmt: FCOOFormat, factors, mode: int, *,
 
 
 # ------------------------------------------------------------------------ CSF
+def _csf_order(indices, dims, root: int) -> np.ndarray:
+    """The permutation that sorts the non-zeros by (root, the other modes
+    in increasing order), ties in input order: ``np.lexsort``'s.  Where the
+    product of the dims fits in int64, one stable sort of the linearized
+    key (root slowest) gives the same permutation for one key array in
+    place of N."""
+    rest = [m for m in range(len(dims)) if m != root]
+    if math.prod(int(d) for d in dims) >= 1 << 63:
+        key = [indices[:, m] for m in rest]
+        return np.lexsort(tuple(reversed(key)) + (indices[:, root],))
+    lin = indices[:, root].astype(np.int64)
+    for m in rest:
+        lin = lin * np.int64(dims[m]) + indices[:, m]
+    return np.argsort(lin, kind="stable")
+
+
 @dataclasses.dataclass
 class CSFTree:
     root_mode: int
@@ -178,8 +195,7 @@ class CSFFormat:
     def build(t: SparseTensor) -> "CSFFormat":
         trees = []
         for root in range(t.order):
-            key = [t.indices[:, m] for m in range(t.order) if m != root]
-            order = np.lexsort(tuple(reversed(key)) + (t.indices[:, root],))
+            order = _csf_order(t.indices, t.dims, root)
             si = t.indices[order].astype(np.int32)
             sv = t.values[order]
             roots = si[:, root]

@@ -1,8 +1,9 @@
 """Batched serving example: prefill + streaming greedy decode.
 
 The port's counterpart of ``examples/serve_lm.py``, at its sizes: the
-``reduced()`` config of ``--arch``, batch 4, a 12-token prompt and 24 new
-tokens, weights drawn from a generator seeded 0 on the device.
+``reduced()`` config of ``--arch`` (any of the ten configs), batch 4, a
+12-token prompt and 24 new tokens, weights drawn from a generator seeded
+0 on the device.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch minicpm-2b] [--device cpu]
 """

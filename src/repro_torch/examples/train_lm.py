@@ -2,10 +2,10 @@
 embedding-gradient path (segment conflict resolution vs naive scatter).
 
 The port's counterpart of ``examples/train_lm.py``, at its sizes: the
-``reduced()`` config of ``--arch``, batch 8, sequence 128, 300 steps of
-the fault-tolerant trainer (checkpoint + resume) over the deterministic
-synthetic data, the config's WSD/cosine schedule; on the card unless
-``--device cpu``.
+``reduced()`` config of ``--arch`` (any of the ten configs), batch 8,
+sequence 128, 300 steps of the fault-tolerant trainer (checkpoint +
+resume) over the deterministic synthetic data, the config's WSD/cosine
+schedule; on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm [--arch minicpm-2b] [--steps 300] [--device cpu]
 """

@@ -1,6 +1,6 @@
-"""Attention, the GQA half (with optional QKV bias / sliding window): the
-port's counterpart of ``repro.models.attention``.  MLA waits for the MoE
-family (ROADMAP queue 1, 13.4).
+"""Attention: GQA (with optional QKV bias / sliding window) and MLA
+(DeepSeek compressed-KV, absorbed decode path), the port's counterpart of
+``repro.models.attention``.
 
 Train/prefill attention has two implementations:
 
@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .modules import apply_rope, linear, linear_init, rope_angles, rope_freqs
+from .modules import (apply_rope, linear, linear_init, rmsnorm,
+                      rmsnorm_init, rope_angles, rope_freqs)
 
 NEG_INF = -1e30
 
@@ -162,3 +163,112 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, pos: int):
     out = _einsum("bkgqs,bskh->bqkgh", probs, cache_v)
     out = out.reshape(b, 1, h * hd)
     return linear(p.wo, out), cache_k, cache_v
+
+
+# ----------------------------------------------------------------------- MLA
+def mla_init(generator, cfg, dtype, device=None) -> nn.Module:
+    """The compressed-KV projections (``wdq``/``q_norm``/``wuq`` with a
+    q LoRA rank, else ``wq``), ``wdkv``, ``kv_norm``, ``wuk``, ``wuv``,
+    the shared-head ``wkr``, ``wo``, and the rope_head_dim rotary
+    frequencies as a buffer."""
+    d = cfg.d_model
+    h = cfg.num_heads
+    qk_nope, qk_rope, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = nn.Module()
+    if cfg.q_lora_rank:
+        p.wdq = linear_init(generator, d, cfg.q_lora_rank, **kw)
+        p.q_norm = rmsnorm_init(cfg.q_lora_rank, dtype, device=device)
+        p.wuq = linear_init(generator, cfg.q_lora_rank,
+                            h * (qk_nope + qk_rope), **kw)
+    else:
+        p.wq = linear_init(generator, d, h * (qk_nope + qk_rope), **kw)
+    p.wdkv = linear_init(generator, d, cfg.kv_lora_rank, **kw)
+    p.kv_norm = rmsnorm_init(cfg.kv_lora_rank, dtype, device=device)
+    p.wuk = linear_init(generator, cfg.kv_lora_rank, h * qk_nope, **kw)
+    p.wuv = linear_init(generator, cfg.kv_lora_rank, h * vh, **kw)
+    p.wkr = linear_init(generator, d, qk_rope, **kw)   # shared-head k_rope
+    p.wo = linear_init(generator, h * vh, d,
+                       scale=(h * vh) ** -0.5 / (2 * cfg.num_layers) ** 0.5,
+                       **kw)
+    p.register_buffer("freqs", rope_freqs(qk_rope, cfg.rope_theta, device),
+                      persistent=False)
+    return p
+
+
+def _mla_q(p, cfg, x):
+    h = cfg.num_heads
+    qk_nope, qk_rope = cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        cq = rmsnorm(p.q_norm, linear(p.wdq, x), cfg.norm_eps)
+        q = linear(p.wuq, cq)
+    else:
+        q = linear(p.wq, x)
+    q = q.reshape(x.shape[:-1] + (h, qk_nope + qk_rope))
+    return q[..., :qk_nope], q[..., qk_nope:]
+
+
+def mla_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
+    """MLA train/prefill: decompress K/V for all positions (non-absorbed)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    qk_nope, qk_rope, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    cos, sin = rope_angles(positions, p.freqs)
+    q_rope = apply_rope(q_rope, cos[None, :, None], sin[None, :, None])
+
+    ckv = rmsnorm(p.kv_norm, linear(p.wdkv, x), cfg.norm_eps)
+    k_nope = linear(p.wuk, ckv).reshape(b, s, h, qk_nope)
+    v = linear(p.wuv, ckv).reshape(b, s, h, vh)
+    k_rope = apply_rope(linear(p.wkr, x), cos, sin)        # (B,S,rope) shared
+
+    q = torch.cat([q_nope, q_rope], dim=-1)                # (B,S,H,nope+rope)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, qk_rope)],
+                  dim=-1)
+    # MLA is MHA (kv heads == heads): the grouped attention with G = 1
+    q5 = q.reshape(b, s, h, 1, qk_nope + qk_rope)
+    if impl == "chunked":
+        out = _chunked_attn(q5, k, v, offset=0, window=None, chunk=chunk)
+    else:
+        out = _full_attn(q5, k, v, _causal_mask(s, s, 0, None, x.device))
+    out = out.reshape(b, s, h * vh)
+    return linear(p.wo, out)
+
+
+def mla_decode(p, cfg, x, cache_ckv, cache_kr, pos: int):
+    """Absorbed-matrices MLA decode (DeepSeek-V2 inference optimization):
+    attend directly in the kv_lora latent space, all in f32; the cache is
+    one layer's (B,S,kv_lora) + (B,S,rope) views, this token's entries
+    written at ``pos`` in place.  Returns (out, cache_ckv, cache_kr)."""
+    f32 = torch.float32
+    b = x.shape[0]
+    h = cfg.num_heads
+    qk_nope, qk_rope, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    s = cache_ckv.shape[1]
+
+    q_nope, q_rope = _mla_q(p, cfg, x)                  # (B,1,H,*)
+    position = torch.full((1,), pos, dtype=f32, device=x.device)
+    cos, sin = rope_angles(position, p.freqs)
+    q_rope = apply_rope(q_rope, cos[None, :, None], sin[None, :, None])
+
+    ckv = rmsnorm(p.kv_norm, linear(p.wdkv, x), cfg.norm_eps)  # (B,1,lora)
+    kr = apply_rope(linear(p.wkr, x), cos, sin)                # (B,1,rope)
+    cache_ckv[:, pos].copy_(ckv[:, 0])
+    cache_kr[:, pos].copy_(kr[:, 0])
+
+    # absorb W_uk into q: q_eff (B,1,H,lora)
+    wuk = p.wuk.w.reshape(lora, h, qk_nope)
+    q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope.to(f32), wuk.to(f32))
+    scores = (torch.einsum("bqhl,bsl->bhqs", q_eff, cache_ckv.to(f32))
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.to(f32),
+                             cache_kr.to(f32)))
+    scores = scores * ((qk_nope + qk_rope) ** -0.5)
+    valid = torch.arange(s, device=x.device)[None, None, None, :] <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsl->bqhl", probs, cache_ckv.to(f32))
+    wuv = p.wuv.w.reshape(lora, h, vh)
+    out = torch.einsum("bqhl,lhv->bqhv", ctx, wuv.to(f32))
+    out = out.to(x.dtype).reshape(b, 1, h * vh)
+    return linear(p.wo, out), cache_ckv, cache_kr

@@ -1,23 +1,31 @@
-"""Decoder-LM spine, the ``dense`` / ``vlm`` families: the port's
-counterpart of ``repro.models.transformer``.
+"""Decoder-LM spine for the dense / vlm / MoE / SSM / hybrid families: the
+port's counterpart of ``repro.models.transformer``.
 
-  dense  — [attn, mlp] x L      (stablelm, qwen, minicpm, danube)
-  vlm    — the same backbone over precomputed patch embeddings (internvl2)
+  dense  — [attn, mlp] x L                     (stablelm, qwen, minicpm,
+                                                danube)
+  vlm    — the dense backbone over precomputed patch embeddings (internvl2)
+  moe    — [attn, moe] x L (+ leading dense)   (dbrx, deepseek-v2/MLA)
+  ssm    — [mamba2] x L                        (mamba2-370m)
+  hybrid — mamba2 spine + one SHARED attention block applied every k layers
+           with per-site LoRA                  (zamba2)
 
-The parameters live in ``nn.Module`` containers named as the reference's
-pytree (``embed``, ``frontend_proj``, ``dense_layers``, ``ln_f``,
-``lm_head``); the reference stacks the layers on a leading axis for
-``lax.scan``, the port keeps one container per layer in an
-``nn.ModuleList`` and loops over them.  The math is in functions of
-(params, cfg, ...), as in the reference, so one set of weights runs under
-another config's compute dtype; ``Transformer``'s methods call them with
-its own config.  The reference's ``constrain`` anchors are no-ops without
-a mesh and are left out on one card (the mesh substrate is ROADMAP
-queue 1, 13.5); the MoE, SSM, hybrid and enc-dec families raise
-``NotImplementedError`` (13.4).  Training's loss is here too
+The enc-dec family is ``encdec.py``.  The parameters live in ``nn.Module``
+containers named as the reference's pytree (``embed``, ``frontend_proj``,
+``dense_layers``, ``moe_layers``, ``ssm_layers``, ``pre_layers``,
+``group_layers``, ``shared_attn``, ``site_lora``, ``ln_f``, ``lm_head``);
+the reference stacks a group's layers on leading axes for ``lax.scan``
+(two for the hybrid's ``group_layers``: groups x layers per group), the
+port keeps one container per layer in an ``nn.ModuleList`` (a list of
+lists for ``group_layers``) and loops over them.  The math is in
+functions of (params, cfg, ...), as in the reference, so one set of
+weights runs under another config's compute dtype; ``Transformer``'s
+methods call them with its own config.  The reference's ``constrain``
+anchors are no-ops without a mesh and are left out on one card (the mesh
+substrate is ROADMAP queue 1, 13.5).  Training's loss is here too
 (``parallel_cross_entropy``, ``loss_fn``), and ``forward`` runs each
-layer under ``torch.utils.checkpoint`` when gradients are on, the
-reference's ``jax.checkpoint`` around its scan body (``_remat``).
+layer, and each hybrid group around its layers, under
+``torch.utils.checkpoint`` when gradients are on, the reference's
+``jax.checkpoint`` around its scan bodies (``_remat``).
 
 The token embedding uses ``repro_torch.core.embedding_lookup`` — the
 paper's sort+segment conflict resolution on the embedding-gradient MTTKRP
@@ -35,20 +43,10 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.embed_grad import embedding_lookup
 
 from . import attention as attn
-from .modules import (dtype_of, embedding_init, linear, linear_init,
-                      rmsnorm, rmsnorm_init)
-
-PORTED_FAMILIES = ("dense", "vlm")
-
-
-def check_ported(cfg) -> None:
-    """Raise for a config whose family the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.moe or cfg.is_encdec \
-            or cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (attention "
-            f"{cfg.attention!r}) is not ported yet; the MoE, SSM, hybrid "
-            f"and enc-dec families are ROADMAP queue 1, item 13.4")
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .modules import (_param, dtype_of, embedding_init, linear, linear_init,
+                      normal_, rmsnorm, rmsnorm_init)
 
 
 # ------------------------------------------------------------------------ MLP
@@ -73,7 +71,70 @@ def mlp_apply(p, cfg, x):
 
 
 # ------------------------------------------------------------------- layers
-def dense_layer_init(generator, cfg, dtype, device=None) -> nn.Module:
+def _attn_init(generator, cfg, dtype, device):
+    return attn.mla_init(generator, cfg, dtype, device) \
+        if cfg.attention == "mla" else attn.gqa_init(generator, cfg, dtype,
+                                                     device)
+
+
+def dense_layer_init(generator, cfg, dtype, device=None, *,
+                     use_moe: bool = False) -> nn.Module:
+    p = nn.Module()
+    p.ln1 = rmsnorm_init(cfg.d_model, dtype, device=device)
+    p.attn = _attn_init(generator, cfg, dtype, device)
+    p.ln2 = rmsnorm_init(cfg.d_model, dtype, device=device)
+    if use_moe:
+        p.moe = moe_mod.moe_init(generator, cfg, dtype, device)
+    else:
+        p.mlp = mlp_init(generator, cfg, dtype, cfg.d_ff, device)
+    return p
+
+
+def dense_layer_apply(p, cfg, x, positions, *, impl):
+    """One [attn, mlp | moe] layer: (x, the layer's MoE aux loss, 0 for
+    an MLP)."""
+    h = rmsnorm(p.ln1, x, cfg.norm_eps)
+    if cfg.attention == "mla":
+        h = attn.mla_apply(p.attn, cfg, h, positions=positions, impl=impl)
+    else:
+        h = attn.gqa_apply(p.attn, cfg, h, positions=positions, impl=impl)
+    x = x + h
+    h = rmsnorm(p.ln2, x, cfg.norm_eps)
+    if hasattr(p, "moe"):
+        h, aux = moe_mod.moe_layer(p.moe, cfg, h)
+    else:
+        h = mlp_apply(p.mlp, cfg, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
+
+
+def ssm_layer_init(generator, cfg, dtype, device=None) -> nn.Module:
+    p = nn.Module()
+    p.ln = rmsnorm_init(cfg.d_model, dtype, device=device)
+    p.mamba = ssm_mod.mamba2_init(generator, cfg, dtype, device)
+    return p
+
+
+def ssm_layer_apply(p, cfg, x):
+    return x + ssm_mod.mamba2_apply(p.mamba, cfg,
+                                    rmsnorm(p.ln, x, cfg.norm_eps))
+
+
+# ------------------------------------------------------ hybrid (zamba2-like)
+def _lora_init(generator, d_in, d_out, rank, dtype, device=None) -> nn.Module:
+    p = nn.Module()
+    normal_(_param(p, "a", (d_in, rank), dtype, device), generator,
+            d_in ** -0.5)
+    nn.init.zeros_(_param(p, "b", (rank, d_out), dtype, device))
+    return p
+
+
+def _lora_apply(p, x):
+    return torch.matmul(torch.matmul(x, p.a.to(x.dtype)), p.b.to(x.dtype))
+
+
+def shared_attn_init(generator, cfg, dtype, device=None) -> nn.Module:
+    """The one shared transformer block of zamba2 (attn + mlp)."""
     p = nn.Module()
     p.ln1 = rmsnorm_init(cfg.d_model, dtype, device=device)
     p.attn = attn.gqa_init(generator, cfg, dtype, device)
@@ -82,33 +143,130 @@ def dense_layer_init(generator, cfg, dtype, device=None) -> nn.Module:
     return p
 
 
-def dense_layer_apply(p, cfg, x, positions, *, impl):
-    h = rmsnorm(p.ln1, x, cfg.norm_eps)
-    h = attn.gqa_apply(p.attn, cfg, h, positions=positions, impl=impl)
-    x = x + h
-    h = rmsnorm(p.ln2, x, cfg.norm_eps)
-    return x + mlp_apply(p.mlp, cfg, h)
+def site_lora_init(generator, cfg, dtype, device=None) -> nn.Module:
+    h, kv, hd, d, r = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.d_model, cfg.shared_attn_lora_rank)
+    p = nn.Module()
+    p.q = _lora_init(generator, d, h * hd, r, dtype, device)
+    p.k = _lora_init(generator, d, kv * hd, r, dtype, device)
+    p.v = _lora_init(generator, d, kv * hd, r, dtype, device)
+    return p
+
+
+def _site_qkv(p, lora, cfg, h):
+    """The shared projections plus this site's LoRA deltas, split in
+    heads: q (B,S,H,hd), k and v (B,S,KV,hd)."""
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = h.shape
+    q = (linear(p.wq, h) + _lora_apply(lora.q, h)).reshape(b, s, nh, hd)
+    k = (linear(p.wk, h) + _lora_apply(lora.k, h)).reshape(b, s, kvh, hd)
+    v = (linear(p.wv, h) + _lora_apply(lora.v, h)).reshape(b, s, kvh, hd)
+    return q, k, v
+
+
+def shared_attn_apply(shared, lora, cfg, x, positions, *, impl):
+    """Shared block with per-site LoRA deltas on q/k/v projections."""
+    h = rmsnorm(shared.ln1, x, cfg.norm_eps)
+    p = shared.attn
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = h.shape
+    q, k, v = _site_qkv(p, lora, cfg, h)
+    cos, sin = attn.rope_angles(positions, p.freqs)
+    q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
+    k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
+    q = q.reshape(b, s, kvh, nh // kvh, hd)
+    if impl == "chunked":
+        out = attn._chunked_attn(q, k, v, offset=0, window=None)
+    else:
+        out = attn._full_attn(q, k, v,
+                              attn._causal_mask(s, s, 0, None, x.device))
+    x = x + linear(p.wo, out.reshape(b, s, nh * hd))
+    h2 = rmsnorm(shared.ln2, x, cfg.norm_eps)
+    return x + mlp_apply(shared.mlp, cfg, h2)
+
+
+def _shared_attn_decode(shared, lora, cfg, h, ck, cv, pos: int):
+    """The shared block at one decode position, this site's LoRA folded
+    into the shared projections; writes k and v at ``pos`` into this
+    site's cache views in place."""
+    hh = rmsnorm(shared.ln1, h, cfg.norm_eps)
+    sp = shared.attn
+    b_ = hh.shape[0]
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _site_qkv(sp, lora, cfg, hh)
+    position = torch.full((1,), pos, dtype=torch.float32, device=h.device)
+    cos, sin = attn.rope_angles(position, sp.freqs)
+    q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
+    k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
+    ck[:, pos].copy_(k[:, 0])
+    cv[:, pos].copy_(v[:, 0])
+    s_ = ck.shape[1]
+    q5 = q.reshape(b_, 1, kvh, nh // kvh, hd)
+    scores = attn._einsum("bqkgh,bskh->bkgqs", q5, ck).to(torch.float32)
+    scores = scores * (hd ** -0.5)
+    valid = torch.arange(s_, device=h.device)[None, None, None, None, :] \
+        <= pos
+    scores = torch.where(valid, scores, attn.NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(h.dtype)
+    o = attn._einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b_, 1, nh * hd)
+    h = h + linear(sp.wo, o)
+    hh = rmsnorm(shared.ln2, h, cfg.norm_eps)
+    return h + mlp_apply(shared.mlp, cfg, hh)
+
+
+def hybrid_group_counts(cfg) -> tuple[int, int, int]:
+    """(pre_layers, groups, layers_per_group) covering cfg.num_layers."""
+    k = cfg.shared_attn_every
+    groups = cfg.num_layers // k
+    pre = cfg.num_layers - groups * k
+    return pre, groups, k
 
 
 # ----------------------------------------------------------------- the model
 class Transformer(nn.Module):
-    """The parameters of a dense / vlm decoder LM, and ``forward``,
-    ``init_cache`` and ``decode_step`` under its own config."""
+    """The parameters of a dense / vlm / moe / ssm / hybrid decoder LM,
+    and ``forward``, ``loss``, ``init_cache`` and ``decode_step`` under
+    its own config."""
 
     def __init__(self, cfg, *, device, generator):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
+        kw = dict(device=device)
+
+        def stack(n, init):
+            return nn.ModuleList(init() for _ in range(n))
+
         self.embed = embedding_init(generator, cfg.padded_vocab, cfg.d_model,
                                     dtype, device=device)
         if cfg.input_mode == "embeddings":
             fd = cfg.frontend_dim or cfg.d_model
             self.frontend_proj = linear_init(generator, fd, cfg.d_model,
                                              dtype=dtype, device=device)
-        self.dense_layers = nn.ModuleList(
-            dense_layer_init(generator, cfg, dtype, device)
-            for _ in range(cfg.num_layers))
+        if cfg.family in ("dense", "moe", "vlm"):
+            n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.moe else 0
+            n_dense = cfg.num_layers - n_moe
+            if n_dense:
+                self.dense_layers = stack(n_dense, lambda: dense_layer_init(
+                    generator, cfg, dtype, use_moe=False, **kw))
+            if n_moe:
+                self.moe_layers = stack(n_moe, lambda: dense_layer_init(
+                    generator, cfg, dtype, use_moe=True, **kw))
+        elif cfg.family == "ssm":
+            self.ssm_layers = stack(cfg.num_layers, lambda: ssm_layer_init(
+                generator, cfg, dtype, **kw))
+        elif cfg.family == "hybrid":
+            pre, groups, per = hybrid_group_counts(cfg)
+            if pre:
+                self.pre_layers = stack(pre, lambda: ssm_layer_init(
+                    generator, cfg, dtype, **kw))
+            self.group_layers = stack(groups, lambda: stack(
+                per, lambda: ssm_layer_init(generator, cfg, dtype, **kw)))
+            self.shared_attn = shared_attn_init(generator, cfg, dtype, **kw)
+            self.site_lora = stack(groups, lambda: site_lora_init(
+                generator, cfg, dtype, **kw))
+        else:
+            raise ValueError(cfg.family)
         self.ln_f = rmsnorm_init(cfg.d_model, dtype, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = linear_init(generator, cfg.d_model,
@@ -135,11 +293,11 @@ def init_params(cfg, *, device=None, generator=None) -> Transformer:
     return Transformer(cfg, device=device, generator=generator)
 
 
-def with_params(model, params: dict) -> Transformer:
-    """A model of ``model``'s config holding ``params`` (state-dict names
-    to tensors, taken as they are, not copied) and ``model``'s rotary
-    buffers: the out-of-place train step's new model."""
-    new = Transformer(model.cfg, device="meta", generator=None)
+def with_params(model, params: dict):
+    """A model of ``model``'s class and config holding ``params``
+    (state-dict names to tensors, taken as they are, not copied) and
+    ``model``'s rotary buffers: the out-of-place train step's new model."""
+    new = type(model)(model.cfg, device="meta", generator=None)
     new.load_state_dict(params, assign=True)
     for name, buf in model.named_buffers():
         module, _, attr = name.rpartition(".")
@@ -205,18 +363,49 @@ def _head(p, cfg, x):
 
 def forward(params, cfg, batch, *, impl: str | None = None):
     """batch: {"tokens": (B,S)} or {"embeds": (B,S,Fd)}. Returns (logits,
-    aux); aux is the reference's MoE loss, 0 for these families."""
+    aux); aux is the MoE layers' summed aux loss, 0 for the others."""
     cd = dtype_of(cfg.compute_dtype)
     x = _embed_in(params, cfg, batch, cd)
     s = x.shape[1]
     if impl is None:
         impl = "chunked" if s > 8192 else "full"
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    layer = _remat(dense_layer_apply, cfg)
-    for lp in params.dense_layers:
-        x = layer(lp, cfg, x, positions, impl=impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, cfg, x), aux
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        layer = _remat(dense_layer_apply, cfg)
+        for group in ("dense_layers", "moe_layers"):
+            if not hasattr(params, group):
+                continue
+            auxes = []
+            for lp in getattr(params, group):
+                x, aux = layer(lp, cfg, x, positions, impl=impl)
+                auxes.append(aux)
+            aux_total = aux_total + torch.stack(auxes).sum()
+    elif cfg.family == "ssm":
+        layer = _remat(ssm_layer_apply, cfg)
+        for lp in params.ssm_layers:
+            x = layer(lp, cfg, x)
+    elif cfg.family == "hybrid":
+        layer = _remat(ssm_layer_apply, cfg)
+        for lp in getattr(params, "pre_layers", ()):
+            x = layer(lp, cfg, x)
+        group = _remat(_hybrid_group, cfg)
+        for glayers, lora in zip(params.group_layers, params.site_lora):
+            x = group(glayers, lora, params.shared_attn, cfg, x, positions,
+                      impl)
+    else:
+        raise ValueError(cfg.family)
+    return _head(params, cfg, x), aux_total
+
+
+def _hybrid_group(glayers, lora, shared, cfg, x, positions, impl):
+    """One hybrid group: its SSM layers, each under ``_remat``, then the
+    shared block with this site's LoRA."""
+    layer = _remat(ssm_layer_apply, cfg)
+    for lp in glayers:
+        x = layer(lp, cfg, x)
+    return shared_attn_apply(shared, lora, cfg, x, positions, impl=impl)
 
 
 def parallel_cross_entropy(logits, labels):
@@ -233,7 +422,7 @@ def parallel_cross_entropy(logits, labels):
 
 
 def loss_fn(params, cfg, batch):
-    """Next-token CE + the MoE aux loss (0 here). batch needs "labels":
+    """Next-token CE + the MoE aux loss. batch needs "labels":
     (B,S) int. Returns (loss, {"nll", "aux"})."""
     logits, aux = forward(params, cfg, batch)
     nll = parallel_cross_entropy(logits, batch["labels"])
@@ -244,27 +433,91 @@ def loss_fn(params, cfg, batch):
 # ------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                device=None):
-    """One (L, B, max_len, KV, hd) tensor each for k and v, zeroed."""
-    check_ported(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """The decode cache, zeroed: per layer k and v (or MLA's compressed
+    ckv and kr) of ``max_len`` positions in ``dtype``, the SSM layers'
+    f32 conv ring and state, the hybrid's per-site k and v."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def states(*lead):
+        st = ssm_mod.mamba2_decode_init(cfg, batch, device=device)
+        return {k: v.expand(lead + v.shape).contiguous()
+                for k, v in st.items()}
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        L = cfg.num_layers
+        if cfg.attention == "mla":
+            return {"ckv": zeros(L, batch, max_len, cfg.kv_lora_rank),
+                    "kr": zeros(L, batch, max_len, cfg.rope_head_dim)}
+        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+    if cfg.family == "ssm":
+        return {"ssm": states(cfg.num_layers)}
+    if cfg.family == "hybrid":
+        pre, groups, per = hybrid_group_counts(cfg)
+        shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"pre": states(pre) if pre else {},
+                "groups": states(groups, per),
+                "attn_k": zeros(*shape), "attn_v": zeros(*shape)}
+    raise ValueError(cfg.family)
+
+
+def _at(states: dict, index) -> dict:
+    """One layer's views of a stacked state tree."""
+    return {k: v[index] for k, v in states.items()}
 
 
 @torch.no_grad()
 def decode_step(params, cfg, cache, tokens, pos: int):
     """One decode step. tokens: (B,1) int (or embeds (B,1,Fd)); pos: the
-    current position, a Python int.  Writes each layer's k and v at
-    ``pos`` into ``cache`` in place; returns (logits (B,1,V), cache)."""
+    current position, a Python int.  Writes each layer's cache entries
+    (k and v, MLA's ckv and kr, the SSM's conv ring and state) at ``pos``
+    into ``cache`` in place; returns (logits (B,1,V), cache)."""
     cd = dtype_of(cfg.compute_dtype)
     batch = {"tokens": tokens} if cfg.input_mode == "tokens" \
         else {"embeds": tokens}
     x = _embed_in(params, cfg, batch, cd)
-    for i, lp in enumerate(params.dense_layers):
-        hh = rmsnorm(lp.ln1, x, cfg.norm_eps)
-        a, _, _ = attn.gqa_decode(lp.attn, cfg, hh, cache["k"][i],
-                                  cache["v"][i], pos)
-        x = x + a
-        hh = rmsnorm(lp.ln2, x, cfg.norm_eps)
-        x = x + mlp_apply(lp.mlp, cfg, hh)
+
+    def ssm_layer(lp, h, state):
+        y, _ = ssm_mod.mamba2_decode(lp.mamba, cfg,
+                                     rmsnorm(lp.ln, h, cfg.norm_eps), state)
+        return h + y
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        off = 0
+        for group in ("dense_layers", "moe_layers"):
+            layers = getattr(params, group, ())
+            for i, lp in enumerate(layers, start=off):
+                hh = rmsnorm(lp.ln1, x, cfg.norm_eps)
+                if cfg.attention == "mla":
+                    a, _, _ = attn.mla_decode(lp.attn, cfg, hh,
+                                              cache["ckv"][i],
+                                              cache["kr"][i], pos)
+                else:
+                    a, _, _ = attn.gqa_decode(lp.attn, cfg, hh,
+                                              cache["k"][i], cache["v"][i],
+                                              pos)
+                x = x + a
+                hh = rmsnorm(lp.ln2, x, cfg.norm_eps)
+                if hasattr(lp, "moe"):
+                    m, _ = moe_mod.moe_layer(lp.moe, cfg, hh)
+                else:
+                    m = mlp_apply(lp.mlp, cfg, hh)
+                x = x + m
+            off += len(layers)
+    elif cfg.family == "ssm":
+        for i, lp in enumerate(params.ssm_layers):
+            x = ssm_layer(lp, x, _at(cache["ssm"], i))
+    elif cfg.family == "hybrid":
+        for i, lp in enumerate(getattr(params, "pre_layers", ())):
+            x = ssm_layer(lp, x, _at(cache["pre"], i))
+        for g, (glayers, lora) in enumerate(zip(params.group_layers,
+                                                params.site_lora)):
+            for i, lp in enumerate(glayers):
+                x = ssm_layer(lp, x, _at(cache["groups"], (g, i)))
+            x = _shared_attn_decode(params.shared_attn, lora, cfg, x,
+                                    cache["attn_k"][g], cache["attn_v"][g],
+                                    pos)
+    else:
+        raise ValueError(cfg.family)
     return _head(params, cfg, x), cache

@@ -8,7 +8,8 @@ map each parameter's state-dict name to a tensor of its shape, and
 parameters on a leading axis as one leaf, where the port keeps one tensor
 per layer; where that shows in the numbers the port follows the
 reference's leaves (``leaf_groups``): the global norm sums them in the
-reference's order, a stacked leaf's L layers as one term, and
+reference's order, a stacked leaf's layers (on one leading axis or the
+hybrid's two) as one term, and
 ``v_scale`` holds one scale per reference leaf, over all its layers
 (keyed by the leaf's path, ``dense_layers.attn.wq.w``).
 
@@ -54,14 +55,16 @@ def leaf_groups(names) -> dict[str, list[str]]:
     """The reference's leaves in its order (dict keys sorted at every
     level), each with the state-dict names of the port's tensors that make
     it up: a layer group's leaf (``dense_layers.attn.wq.w``) is its L
-    per-layer tensors (``dense_layers.<i>.attn.wq.w``) in layer order."""
+    per-layer tensors (``dense_layers.<i>.attn.wq.w``) in layer order, the
+    hybrid's two-axis leaf (``group_layers.mamba.A_log``) its G x K
+    tensors (``group_layers.<g>.<i>.mamba.A_log``) in the order of the
+    index tuple (g, i), the reference's row-major stacking."""
     groups: dict[tuple, list] = {}
     for name in names:
         parts = name.split(".")
-        at = next((i for i, p in enumerate(parts) if p.isdigit()), None)
-        path = tuple(parts) if at is None else tuple(parts[:at] + parts[at + 1:])
-        layer = 0 if at is None else int(parts[at])
-        groups.setdefault(path, []).append((layer, name))
+        path = tuple(p for p in parts if not p.isdigit())
+        index = tuple(int(p) for p in parts if p.isdigit())
+        groups.setdefault(path, []).append((index, name))
     return {".".join(path): [n for _, n in sorted(groups[path])]
             for path in sorted(groups)}
 

@@ -4,7 +4,9 @@ counterpart of ``repro.serving.decode``.
 Greedy/temperature sampling over batched requests.  The server runs the
 model's own ``decode_step`` one token at a time, prefill included, as the
 reference does; each new token is read to the host once, where it is
-written into the result.
+written into the result.  Every family serves through it: an enc-dec
+model gets ``init_cache(b, max_len)``, whose encoder memory (1024
+positions) is zeros, as the reference's server gives it.
 """
 from __future__ import annotations
 

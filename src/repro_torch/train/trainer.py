@@ -37,7 +37,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import build_model, transformer
+from repro_torch.models import build_model
+from repro_torch.models.model import init_params
 from repro_torch.optim import adamw
 from . import checkpoint as ckpt
 
@@ -83,7 +84,7 @@ class Trainer:
 
         # ---- init or restore -------------------------------------------------
         like = convert.train_state_to_jax(self._state_of(
-            transformer.init_params(model_cfg, device="meta")))
+            init_params(model_cfg, device="meta")))
         step, restored = ckpt.restore_latest(cfg.ckpt_dir, like)
         if restored is not None:
             self.start_step = step

@@ -266,3 +266,35 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         plan_for(core.build_blco(pt), BUDGET, rank=RANK, backend="fcoo",
                  kernel="torch", tensor=pt)
+
+
+@pytest.mark.parametrize("huge", [False, True], ids=["linear", "lexsort"])
+def test_csf_build_with_duplicate_coordinates_order4(huge):
+    """CSF's build on an order-4 tensor whose coordinates repeat (a
+    ``SparseTensor`` made directly, not deduplicated): the trees equal the
+    reference's array for array, so the stable sort of the linearized key
+    keeps tied non-zeros in input order as ``np.lexsort`` does; with dims
+    whose product passes int64 the port keeps the lexsort."""
+    rng = np.random.default_rng(11)
+    dims = (7, 3, 2 ** 61, 5) if huge else (7, 3, 11, 5)
+    base = rng.integers(0, [7, 3, 11, 5], (60, 4))
+    idx = np.concatenate([base, base[rng.integers(0, 60, 40)]])
+    idx = idx[rng.permutation(len(idx))].astype(np.int64)
+    vals = rng.standard_normal(len(idx)).astype(np.float32)
+    assert len(np.unique(idx, axis=0)) < len(idx)
+    from repro.core.tensor import SparseTensor as RefTensor
+    from repro_torch.core.tensor import SparseTensor
+    got = baselines.CSFFormat.build(SparseTensor(dims, idx, vals))
+    want = rcore.CSFFormat.build(RefTensor(dims, idx, vals))
+    a, b = _arrays(got), _arrays(want)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            assert x == y
+    for root in range(4):
+        rest = [idx[:, m] for m in range(4) if m != root]
+        np.testing.assert_array_equal(
+            baselines._csf_order(idx, dims, root),
+            np.lexsort(tuple(reversed(rest)) + (idx[:, root],)))

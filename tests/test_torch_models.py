@@ -15,8 +15,10 @@ inputs, made from a seed with numpy:
   ``BF16_TOL`` in the configs' bf16 compute;
 * decode against the port's own ``forward`` in f32 (the reference's own
   bound, ``tests/test_models.py``), the sliding window, ``param_count``
-  and every full-width parameter shape (on the ``meta`` device), and the
-  families that are not ported.
+  and every full-width parameter shape of all ten configs (on the
+  ``meta`` device).  The other families are held against the reference
+  in ``test_torch_moe.py``, ``test_torch_ssm.py``, ``test_torch_hybrid.py``
+  and ``test_torch_encdec.py``.
 
 Every intended difference between the two packages is named in
 ``DIFFERENCES``, and a test holds each name to the sources.
@@ -40,14 +42,15 @@ from repro.models import param_count as ref_count  # noqa: E402
 from repro.models import modules as ref_modules  # noqa: E402
 from repro.models import transformer as ref_transformer  # noqa: E402
 from repro_torch.configs import ASSIGNED, get_config  # noqa: E402
-from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
+from repro_torch.convert import (STACKED, params_from_jax,  # noqa: E402
+                                 params_to_jax)
 from repro_torch.models import attention, build_model, param_count  # noqa: E402
 from repro_torch.models import modules, transformer  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = ["minicpm_2b", "qwen2_5_14b", "stablelm_12b", "h2o_danube_3_4b",
          "internvl2_2b"]
-UNPORTED = [n for n in ASSIGNED if n not in DENSE]
 # f32 compute: both packages reduce in another order, nothing else
 F32_TOL = 1e-5
 # bf16 compute: the same roundings in the same order, but XLA may keep an
@@ -300,23 +303,23 @@ def test_rope_angles_equal_reference():
 
 
 # ------------------------------------------------------------ params, shapes
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ASSIGNED)
 def test_full_width_shapes_and_param_count_equal_reference(name):
-    """Every parameter at full width and depth (the port on the ``meta``
-    device, the reference under ``jax.eval_shape``)."""
+    """Every parameter at full width and depth of each of the ten configs
+    (the port on the ``meta`` device, the reference under
+    ``jax.eval_shape``); a stacked leaf splits on its group's leading
+    axes, two for the hybrid's ``group_layers``."""
     cfg = get_config(name)
     ref = jax.eval_shape(ref_build(ref_config(name)).init, jax.random.key(0))
-    model = transformer.init_params(cfg, device="meta")
+    model = init_params(cfg, device="meta")
     assert param_count(model) == ref_count(ref)
     want = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
         keys = [p.key for p in path]
-        if keys[0] == "dense_layers":
-            for i in range(leaf.shape[0]):
-                want[".".join([keys[0], str(i)] + keys[1:])] = \
-                    (tuple(leaf.shape[1:]), str(leaf.dtype))
-        else:
-            want[".".join(keys)] = (tuple(leaf.shape), str(leaf.dtype))
+        axes = STACKED.get(keys[0], 0)
+        for index in np.ndindex(*leaf.shape[:axes]):
+            want[".".join([keys[0], *map(str, index)] + keys[1:])] = \
+                (tuple(leaf.shape[axes:]), str(leaf.dtype))
     got = {k: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
            for k, t in model.state_dict().items()}
     assert got == want
@@ -371,12 +374,3 @@ def test_build_model_draws_the_reference_law():
     assert float(w.abs().max()) <= 2 * scale
     assert abs(float(w.std()) / scale - 0.88) < 0.05   # std of N(0,1)|[-2,2]
     assert torch.equal(a.ln_f.scale, torch.ones(cfg.d_model))
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="13.4"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="13.4"):
-        transformer.init_cache(cfg, 1, 4)

@@ -11,7 +11,11 @@ numpy:
 * the global norm over the reference's leaves in its order; the state's
   layout; the in-place step (``donate=True``) bitwise equal to the
   out-of-place one, which leaves the old state untouched; a ``None``
-  gradient bitwise the zeros.
+  gradient bitwise the zeros;
+* the reference's leaves where a group stacks on two axes (the hybrid's
+  ``group_layers``, (groups, layers per group)): ``leaf_groups`` strips
+  every layer index, and int8 AdamW on the reduced zamba2 keeps one
+  ``v_scale`` per reference leaf, equal to the reference's.
 """
 import dataclasses
 
@@ -27,7 +31,7 @@ from repro.models import build_model as ref_build  # noqa: E402
 from repro.optim import adamw as ref_adamw  # noqa: E402
 from repro.optim import schedules as ref_schedules  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import (params_from_jax,  # noqa: E402
+from repro_torch.convert import (_unstacked, params_from_jax,  # noqa: E402
                                  train_state_to_jax)
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -103,11 +107,12 @@ def test_schedule_matches_reference(name, peak, warmup, total):
 
 
 # ------------------------------------------------------------ the updates
-def _setup(seed=0):
-    """The reference's reduced-minicpm parameters and the port's copy."""
-    rcfg = ref_config("minicpm_2b").reduced()
+def _setup(seed=0, name="minicpm_2b"):
+    """The reference's reduced parameters of ``name`` and the port's
+    copy."""
+    rcfg = ref_config(name).reduced()
     rp = ref_build(rcfg).init(jax.random.key(seed))
-    model = params_from_jax(get_config("minicpm_2b").reduced(),
+    model = params_from_jax(get_config(name).reduced(),
                             jax.tree.map(np.asarray, rp), device="cpu")
     return rp, model
 
@@ -124,15 +129,9 @@ def _grads(rp, step):
         g[rng.random(leaf.shape) < 0.01] = 0.0
         arrs.append(g)
     tree = jax.tree.unflatten(treedef, arrs)
-    named = {}
-    for path, g in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        keys = [p.key for p in path]
-        if keys[0] == "dense_layers":
-            for i in range(g.shape[0]):
-                named[".".join([keys[0], str(i)] + keys[1:])] = \
-                    torch.from_numpy(g[i].copy())
-        else:
-            named[".".join(keys)] = torch.from_numpy(g.copy())
+    # each stacked leaf split on its group's leading axes, as the port
+    # holds it
+    named = {k: v.clone() for k, v in _unstacked(tree).items()}
     return jax.tree.map(jnp.asarray, tree), named
 
 
@@ -194,6 +193,54 @@ def test_leaf_groups_follow_the_reference_leaves():
     names = [f"dense_layers.{i}.ln1.scale" for i in (10, 9, 1, 0)]
     assert adamw.leaf_groups(names)["dense_layers.ln1.scale"] == \
         [f"dense_layers.{i}.ln1.scale" for i in (0, 1, 9, 10)]
+
+
+def test_leaf_groups_strip_every_layer_index():
+    """A two-axis leaf (``group_layers.<g>.<i>...``) is one group, its
+    G x K tensors in the order of (g, i); the groups follow the reduced
+    zamba2's reference leaves in the reference's order."""
+    names = [f"group_layers.{g}.{i}.mamba.A_log"
+             for g, i in ((2, 0), (0, 1), (10, 1), (1, 0), (0, 0), (2, 1),
+                          (1, 1), (10, 0))]
+    names += ["site_lora.1.q.a", "site_lora.0.q.a", "shared_attn.ln1.scale"]
+    groups = adamw.leaf_groups(names)
+    assert list(groups) == ["group_layers.mamba.A_log",
+                            "shared_attn.ln1.scale", "site_lora.q.a"]
+    assert groups["group_layers.mamba.A_log"] == [
+        f"group_layers.{g}.{i}.mamba.A_log"
+        for g in (0, 1, 2, 10) for i in (0, 1)]
+    assert groups["site_lora.q.a"] == ["site_lora.0.q.a", "site_lora.1.q.a"]
+    rp, model = _setup(name="zamba2_1_2b")
+    groups = adamw.leaf_groups(dict(model.named_parameters()))
+    want = _ref_leaves(rp)
+    assert list(groups) == list(want)
+    for key, members in groups.items():
+        lead = want[key].shape[:want[key].ndim - model.get_parameter(
+            members[0]).ndim]
+        assert len(members) == int(np.prod(lead)), key
+
+
+def test_int8_v_scale_one_per_reference_leaf_for_the_hybrid():
+    """int8 AdamW over 3 steps on the reduced zamba2: ``v_scale`` holds
+    one scale per reference leaf (the two-axis ``group_layers`` leaves
+    included), each within ``TOL`` of the reference's; the global norm
+    too."""
+    cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup=2, total_steps=8,
+                            quantize_v="int8", clip_norm=50.0)
+    rp, model = _setup(name="zamba2_1_2b")
+    rstate = ref_adamw.init_state(rp, cfg)
+    params, state = model, adamw.init_state(model, cfg)
+    assert set(state["v_scale"]) == set(_ref_leaves(rp))
+    for step in range(3):
+        rg, pg = _grads(rp, step)
+        rp, rstate, rmet = ref_adamw.apply_updates(rp, rg, rstate, cfg)
+        params, state, met = adamw.apply_updates(params, pg, state, cfg)
+        assert _rel(met["grad_norm"], rmet["grad_norm"]) <= TOL
+        want = _ref_leaves(rstate["v_scale"])
+        assert list(state["v_scale"]) == list(want)
+        for key, w in want.items():
+            got = state["v_scale"][key]
+            assert got.shape == () and _rel(got, w) <= TOL, (step, key)
 
 
 @pytest.mark.parametrize("quantize_v", ["none", "int8"])

@@ -7,7 +7,8 @@ package's where both run:
 * the port's twin of each test of ``tests/test_trainer.py``
   (checkpoint roundtrip, interrupted save, resume continues, resume
   exact — here bit for bit —, NaN guard, async save, data sharding);
-* checkpoints across packages both ways, with equal manifests;
+* checkpoints across packages both ways, with equal manifests, also of
+  the hybrid whose ``group_layers`` stack on two axes;
 * the Trainer against the reference's: both start from the reference's
   fresh state, saved as a step-0 checkpoint, and run 10 steps of
   minicpm's ``reduced()`` config on the same batches; the losses and the
@@ -42,6 +43,7 @@ from repro.optim import adamw as ref_adamw  # noqa: E402
 from repro.train import Trainer as RefTrainer  # noqa: E402
 from repro.train import TrainerConfig as RefTrainerConfig  # noqa: E402
 from repro.train import checkpoint as ref_ckpt  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (params_from_jax,  # noqa: E402
                                  params_to_jax, train_state_from_jax,
@@ -376,8 +378,44 @@ def _ref_like(cfg, opt_cfg):
 @pytest.mark.parametrize("quantize_v", ["none", "int8"])
 def test_checkpoints_cross_packages_with_equal_manifests(tmp_path,
                                                          quantize_v):
-    rcfg = ref_config("qwen2_5_14b").reduced()
-    cfg = get_config("qwen2_5_14b").reduced()
+    _cross_packages(tmp_path, "qwen2_5_14b", quantize_v)
+
+
+@pytest.mark.parametrize("quantize_v", ["none", "int8"])
+def test_hybrid_checkpoints_cross_packages(tmp_path, quantize_v):
+    """The reduced zamba2, whose ``group_layers`` stack on two axes
+    (groups, layers per group): a checkpoint of each package restores in
+    the other, bitwise, with equal manifests."""
+    _cross_packages(tmp_path, "zamba2_1_2b", quantize_v)
+
+
+def test_two_axis_stacking_round_trips():
+    """``convert``'s split and stack of the hybrid's two-axis leaves: a
+    (G, K, ...) leaf becomes ``group_layers.<g>.<i>...`` tensors, each
+    ``[g, i]``, and stacks back to (G, K, ...)."""
+    g, k = 3, 2
+    leaf = np.arange(g * k * 5, dtype=np.float32).reshape(g, k, 5)
+    lora = np.arange(g * 4, dtype=np.float32).reshape(g, 4)
+    tree = {"group_layers": {"ln": {"scale": leaf}},
+            "site_lora": {"q": {"a": lora}}, "ln_f": {"scale": lora[0]}}
+    named = convert._unstacked(tree)
+    assert sorted(named) == sorted(
+        [f"group_layers.{a}.{b}.ln.scale" for a in range(g)
+         for b in range(k)] + [f"site_lora.{a}.q.a" for a in range(g)]
+        + ["ln_f.scale"])
+    for a in range(g):
+        for b in range(k):
+            assert np.array_equal(
+                named[f"group_layers.{a}.{b}.ln.scale"].numpy(), leaf[a, b])
+    back = convert._tree(named)
+    assert back["group_layers"]["ln"]["scale"].shape == (g, k, 5)
+    assert np.array_equal(back["group_layers"]["ln"]["scale"], leaf)
+    assert np.array_equal(back["site_lora"]["q"]["a"], lora)
+
+
+def _cross_packages(tmp_path, name, quantize_v):
+    rcfg = ref_config(name).reduced()
+    cfg = get_config(name).reduced()
     opt_cfg = adamw.AdamWConfig(quantize_v=quantize_v)
     ref_state = jax.tree.map(np.asarray, _ref_fresh(rcfg, opt_cfg, key=2))
     ref_state["opt"]["step"] = np.int32(11)
