@@ -197,6 +197,32 @@ Phases, each of which exits non-zero when it fails:
    the host's cosine, step ms, tokens/s, peak; zamba2's train state at 4
    layers saved and restored through ``train/checkpoint.py`` bitwise;
    device memory back where it was and no kernel of K1-K5 launched;
+[mesh] the mesh substrate (``repro_torch.dist``, the sharded
+   ``launch.steps`` step, the ``Trainer``'s mesh, ``moe_apply_sharded``,
+   ``launch/train.py --mesh``): (1) deepseek-v2-236b at full width over 2
+   layers with 32 routed experts, two in-place sharded steps at (1, 2048)
+   through a ``Trainer`` on an NCCL world-1 (1, 1) mesh against the
+   unsharded steps from the same draws, under deterministic algorithms
+   (loss and grad norm within 1e-5 relative, parameters within 0.1 lr);
+   (2) ZeRO over data: deepseek in f32 with 16 routed experts and the int8
+   second moment (its scale the max over each leaf's blocks), one step
+   by a ``Trainer`` on a gloo (2, 1) mesh in two worker processes on the
+   one card (``chip_smoke.py --mesh-worker zero RANK``) at (2, 512),
+   against the same step unsharded here (the gradients of the two row
+   blocks averaged): loss and grad norm within 1e-5; (3) expert
+   parallelism: one MoE layer at full width with all 160 experts, 80 per
+   rank on a gloo (1, 2) mesh (``--mesh-worker ep``, the weights read in
+   place through CUDA IPC), forward and backward on (2, 256) tokens
+   against ``moe_apply`` here: output, aux and every gradient within
+   1e-5; (4) part 2's state, written by rank 0 as the Trainer's
+   checkpoint, restored by a ``Trainer`` on the world-1 mesh: every
+   tensor's fingerprint equal to the workers', the parameters within
+   5e-3 of the unsharded step's; (5) ``python -m torch.distributed.run
+   --nproc-per-node 8 -m repro_torch.launch.train --arch dbrx-132b
+   --reduced --mesh test --steps 3`` (eight gloo ranks on the card): exit
+   0, finite losses, every rank's final state digest equal; each part's
+   seconds, each rank's peak memory and the step ms by CUDA events; no
+   kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -3951,6 +3977,663 @@ def families_phase(dev) -> None:
     say(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------------ [mesh]
+# the mesh substrate on the card: the ZeRO-sharded train state, expert
+# parallelism and the launcher.  NCCL refuses two ranks on one card, so
+# world 2 is gloo with both ranks on cuda:0, each a worker process
+# (``chip_smoke.py --mesh-worker PART RANK``) handed its inputs through
+# files under ``build/mesh/`` (and CUDA IPC handles for part 3's tensors)
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+MESH_ARCH = "deepseek-v2-236b"
+# part 1: [families]' deepseek training config (2 layers, 32 routed
+# experts, (1, 2048)) at NCCL world 1 on a (1, 1) mesh, 2 steps
+MESH_W1 = (dict(num_layers=2, num_experts=32), (1, 2048), 2)
+# part 2: ZeRO over data on a (2, 1) gloo mesh in f32 with the int8
+# second moment, the routed experts cut from 160 to 16: two ranks share
+# the card, each holding its half of the parameters, m and v_q (8.8 GB),
+# the gathered parameters (7.8 GB) and their gradients (7.8 GB)
+MESH_ZERO = (dict(num_layers=2, num_experts=16, compute_dtype="float32"),
+             (2, 512))
+# part 3: one MoE layer at full width with all 160 experts, 80 per rank
+# on a (1, 2) mesh, on (2, 256) tokens, forward and backward in f32
+MESH_EP_TOKENS = (2, 256)
+MESH_OPT = dict(peak_lr=3e-4, warmup=2, total_steps=3)
+MESH_ZERO_OPT = dict(MESH_OPT, quantize_v="int8")
+MESH_STEP_TOL = 1e-5        # loss and grad norm, relative
+MESH_ZERO_TOL = 5e-3        # tests/test_distributed.py's parameter bound
+MESH_EP_TOL = 1e-5          # the sharded MoE against moe_apply, f32
+MESH_LAUNCH = ["--arch", "dbrx-132b", "--reduced", "--mesh", "test",
+               "--steps", "3"]
+MESH_WORKER_TIMEOUT = 300
+AXES = ("data", "model")
+
+
+def fingerprint(t) -> int:
+    """An exact, order-free digest of a tensor's bits: the sum over its
+    elements of the bit pattern times (index mod 65521 + 1), mod 2^64,
+    in pieces of 2^26 elements on the tensor's device."""
+    import torch
+    flat = t.detach().reshape(-1)
+    flat = flat.view({4: torch.int32, 2: torch.int16,
+                      1: torch.int8}[flat.element_size()])
+    total = 0
+    for lo in range(0, flat.numel(), 1 << 26):
+        piece = flat[lo:lo + (1 << 26)].to(torch.int64)
+        weight = torch.arange(lo, lo + piece.numel(),
+                              device=piece.device) % 65521 + 1
+        total += int((piece * weight).sum())
+    return total % (1 << 64)
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state by name (a ``DTensor``'s block)."""
+    from torch.distributed.tensor import DTensor
+    out = {f"params.{n}": p for n, p in state["params"].named_parameters()}
+    for k, v in state["opt"].items():
+        for n, t in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[f"{k}.{n}"] = t
+    return {k: t.to_local() if isinstance(t, DTensor) else t
+            for k, t in out.items()}
+
+
+class MeshCoords:
+    """A mesh's shape and one rank's coordinates on it, without a process
+    group: enough for ``sharding.placements`` and ``sharding.block``."""
+
+    def __init__(self, shape, axes, coords):
+        self.mesh_dim_names, self.shape = tuple(axes), tuple(shape)
+        self.coords = dict(zip(axes, coords))
+
+    def size(self, i: int) -> int:
+        return self.shape[i]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+
+def timed_step(step_fn, ms: list):
+    """``step_fn`` with each call's CUDA-event ms appended to ``ms``."""
+    import torch
+
+    def run(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(state, batch)
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+        return out
+    return run
+
+
+def mesh_world1(mesh, dev) -> None:
+    """Part 1: ``MESH_W1``'s steps through a ``Trainer`` on the NCCL
+    world-1 (1, 1) mesh against the unsharded in-place step from the same
+    draws and batches: loss and grad norm within ``MESH_STEP_TOL``
+    relative, the parameters within 0.1 lr, under
+    ``torch.use_deterministic_algorithms``."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import put_batch
+    changes, (b, s), n_steps = MESH_W1
+    cfg = family_cfg(MESH_ARCH, **changes)
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **MESH_OPT)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=b, seq_len=s))
+    batches = [put_batch(data.batch_at(i), dev) for i in range(n_steps)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(SEED + 6))
+        state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+        plain = steps.make_train_step(cfg, opt_cfg, donate=True)
+        want = []
+        for batch in batches:
+            state, met = plain(state, batch)
+            want.append({k: float(met[k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
+        want_params = dict(state["params"].named_parameters())
+        del state, model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = Trainer(TrainerConfig(total_steps=n_steps, donate=True,
+                                   ckpt_dir=os.path.join(MESH_DIR, "w1")),
+                     cfg, opt_cfg, steps.make_train_step(
+                         cfg, opt_cfg, donate=True, mesh=mesh), data,
+                     init_generator=torch.Generator(dev).manual_seed(
+                         SEED + 6), device=dev, mesh=mesh)
+        made = time.perf_counter() - t0
+        ms = []
+        step = timed_step(tr.train_step, ms)
+        for i, batch in enumerate(batches):
+            tr.state, met = step(tr.state, batch)
+            got = {k: float(met[k]) for k in ("loss", "grad_norm", "lr")}
+            rel = {k: abs(got[k] - want[i][k]) / abs(want[i][k])
+                   for k in ("loss", "grad_norm")}
+            say(f"[mesh] part 1 step {i + 1}: loss {got['loss']:.6f} "
+                f"(unsharded {want[i]['loss']:.6f}, rel {rel['loss']:.3e}), "
+                f"grad norm {got['grad_norm']:.6f} (rel "
+                f"{rel['grad_norm']:.3e}), {ms[-1]:.3f} ms")
+            if max(rel.values()) > MESH_STEP_TOL:
+                raise AssertionError(f"[mesh] part 1 step {i + 1}: {rel}")
+        lr = want[-1]["lr"]
+        worst = max(float((p.to_local() - want_params[n]).detach().abs()
+                          .max())
+                    for n, p in tr.state["params"].named_parameters())
+        peak = torch.cuda.max_memory_allocated() - before
+        kept = sum(t.numel() * t.element_size()
+                   for t in want_params.values())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    say(f"[mesh] part 1: {cfg.name} x {cfg.num_layers} layers, "
+        f"{cfg.num_experts} routed experts, {cfg.compute_dtype}, (B, S) = "
+        f"({b}, {s}), NCCL world 1, mesh (1, 1): Trainer made in "
+        f"{made:.2f} s, step ms by CUDA events {[round(t, 3) for t in ms]}; "
+        f"largest parameter difference from the unsharded steps "
+        f"{worst:.3e} = {worst / lr:.4f} lr (bound 0.1 lr); peak "
+        f"max_memory_allocated {peak:,} B above the {before:,} B before "
+        f"the Trainer, which hold the unsharded steps' parameters kept "
+        f"for the comparison ({kept:,} B)")
+    if worst > 0.1 * lr:
+        raise AssertionError(f"[mesh] part 1 parameters off by {worst}")
+    del tr, want_params
+
+
+def mesh_spawn(part: str, cfg: dict, env=None, meanwhile=None) -> list:
+    """Two worker processes of ``part`` on the card (gloo world 2): writes
+    their config, calls ``meanwhile(procs, deadline)`` while they run (if
+    given), waits for both, prints their logs, returns their reports."""
+    with open(os.path.join(MESH_DIR, f"{part}.json"), "w") as f:
+        json.dump(cfg, f)
+    logs = [os.path.join(MESH_DIR, f"{part}{r}.log") for r in range(2)]
+    procs = []
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mesh-worker", part, str(r)], stdout=log,
+                    stderr=subprocess.STDOUT, env=env))
+        deadline = time.perf_counter() + MESH_WORKER_TIMEOUT
+        if meanwhile is not None:
+            meanwhile(procs, deadline)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for path in logs:
+            if os.path.isfile(path):
+                with open(path) as f:
+                    for line in f.read().splitlines():
+                        say(line)
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"[mesh] {part} workers exited {codes}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(MESH_DIR, f"{part}_report{r}.json")) as f:
+            reports.append(json.load(f))
+        if any(reports[-1]["launches"].values()):
+            raise AssertionError(f"[mesh] {part} rank {r} launched "
+                                 f"{reports[-1]['launches']}")
+    return reports
+
+
+def accumulated_step(cfg, opt_cfg, state, batch, n: int) -> dict:
+    """The unsharded counterpart of a ZeRO step over ``n`` data ranks, in
+    one process: the loss and gradients of each of the batch's ``n`` row
+    blocks (the rows each rank takes, so the MoE's capacity and aux are
+    per block, as the reference's sharded MoE has them), averaged, then
+    one in-place AdamW update.  Returns the metrics."""
+    import torch
+    from repro_torch.models.model import family
+    from repro_torch.optim import adamw
+    named = dict(state["params"].named_parameters())
+    rows = batch["tokens"].shape[0] // n
+    total, losses = {}, []
+    for i in range(n):
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        with torch.enable_grad():
+            loss, _ = family(cfg).loss_fn(state["params"], cfg, part)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        losses.append(loss.detach())
+        for k, g in zip(named, grads):
+            total[k] = g if k not in total else total[k] + g
+        del grads
+    grads = {k: g / n for k, g in total.items()}
+    _, _, met = adamw.apply_updates(named, grads, state["opt"], opt_cfg,
+                                    inplace=True)
+    return {"loss": float(torch.stack(losses).mean()), **{
+        k: float(v) for k, v in met.items()}}
+
+
+def mesh_zero(mesh, dev) -> None:
+    """Parts 2 and 4: one step of ``MESH_ZERO`` by a ``Trainer`` on a gloo
+    (2, 1) mesh in two workers, against its unsharded counterpart here
+    (``accumulated_step``): loss and grad norm within ``MESH_STEP_TOL``
+    relative; the workers' state, written by rank 0 as the Trainer's
+    checkpoint, restored by a ``Trainer`` on this process's NCCL world-1
+    mesh bitwise (every tensor's ``fingerprint`` equal to the workers'),
+    its parameters within ``MESH_ZERO_TOL`` of the unsharded step's."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import put_batch
+    changes, (b, s) = MESH_ZERO
+    mesh_shape = (2, 1)
+    cfg = family_cfg(MESH_ARCH, **changes)
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **MESH_ZERO_OPT)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=b, seq_len=s))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(SEED + 7))
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    met = accumulated_step(cfg, opt_cfg, state,
+                           put_batch(data.batch_at(0), dev), mesh_shape[0])
+    want_loss, want_norm, lr = met["loss"], met["grad_norm"], met["lr"]
+    want = dict(state["params"].named_parameters())
+    del state, model
+    torch.cuda.empty_cache()
+    say(f"[mesh] part 2: {torch.cuda.memory_allocated():,} B allocated and "
+        f"{torch.cuda.memory_reserved():,} B reserved here beside the "
+        f"workers; the unsharded step here (the gradients of the "
+        f"batch's {mesh_shape[0]} row blocks averaged) in "
+        f"{time.perf_counter() - t0:.2f} s: loss {want_loss:.6f}, grad "
+        f"norm {want_norm:.6f}")
+    t0 = time.perf_counter()
+    reports = mesh_spawn("zero", {"ckpt": os.path.join(MESH_DIR, "zero"),
+                                  "changes": changes, "batch": [b, s]})
+    got = reports[0]
+    rel = abs(got["loss"] - want_loss) / abs(want_loss)
+    norm_rel = abs(got["grad_norm"] - want_norm) / want_norm
+    say(f"[mesh] part 2: {cfg.name} x {cfg.num_layers} layers, "
+        f"{cfg.num_experts} routed experts, f32, (B, S) = ({b}, {s}), gloo "
+        f"world 2, mesh (2, 1): workers {time.perf_counter() - t0:.1f} s; "
+        f"loss {got['loss']:.6f} (rel {rel:.3e}), grad norm rel "
+        f"{norm_rel:.3e}; step ms by CUDA events "
+        f"{[r['step_ms'] for r in reports]}, peak max_memory_allocated "
+        f"{[r['peak'] for r in reports]} B, checkpoint by rank 0 "
+        f"{got['save_s']:.2f} s")
+    if max(rel, norm_rel) > MESH_STEP_TOL:
+        raise AssertionError(f"[mesh] part 2: loss rel {rel}, grad norm "
+                             f"rel {norm_rel}")
+    # part 4: the elastic restart onto this process's world-1 mesh
+    t0 = time.perf_counter()
+    tr = Trainer(TrainerConfig(total_steps=1, ckpt_dir=os.path.join(
+        MESH_DIR, "zero")), cfg, opt_cfg, steps.make_train_step(
+            cfg, opt_cfg, mesh=mesh), data, device=dev, mesh=mesh)
+    load_s = time.perf_counter() - t0
+    # each worker's blocks, cut here from the restored whole tensors
+    specs = steps.train_state_shardings(
+        MeshCoords((2, 1), AXES, (0, 0)),
+        steps.abstract_train_state(cfg, opt_cfg))
+    spec_of = {f"params.{n}": sp for n, sp in specs["params"].items()}
+    for k, v in specs["opt"].items():
+        for n, sp in (v.items() if isinstance(v, dict) else [("", v)]):
+            spec_of[f"{k}.{n}"] = sp
+    whole = state_tensors(tr.state)
+    differ = []
+    for r, rep in enumerate(reports):
+        at = MeshCoords((2, 1), AXES, (r, 0))
+        for k, t in whole.items():
+            part = shd.block(t, at, shd.placements(at, spec_of[k]))
+            if fingerprint(part) != rep["fingerprints"][k]:
+                differ.append((r, k))
+    prints = whole
+    worst = max(float((p.to_local() - want[n]).detach().abs().max())
+                for n, p in tr.state["params"].named_parameters())
+    scale = max(float(w.detach().abs().max()) for w in want.values())
+    say(f"[mesh] part 4: rank 0's checkpoint restored onto the NCCL world-1 "
+        f"mesh (1, 1) by a Trainer in {load_s:.2f} s (step "
+        f"{tr.start_step}): {len(prints)} tensors, {len(differ)} of their "
+        f"2 x {len(prints)} blocks differ from the workers' (by "
+        f"fingerprint); its parameters against the unsharded "
+        f"step: largest difference {worst:.3e} ({worst / lr:.3f} lr; bound "
+        f"{MESH_ZERO_TOL})")
+    if differ or tr.start_step != 1:
+        raise AssertionError(f"[mesh] part 4: {differ[:5]}")
+    if worst > MESH_ZERO_TOL * max(1.0, scale):
+        raise AssertionError(f"[mesh] part 2 parameters off by {worst}")
+    del tr, want
+
+
+def ep_layer(cfg, dev, lo: int, hi: int):
+    """deepseek's MoE layer for part 3 holding the experts ``[lo, hi)``:
+    each weight a truncated normal times fan_in^-1/2, the router and the
+    shared experts from one seeded generator, expert e's three matrices
+    from generators seeded by e, so every process that holds an expert
+    draws the same values for it."""
+    import torch
+    from torch import nn
+    from repro_torch.models import moe
+    from repro_torch.models.modules import normal_
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    p = moe.moe_init(None, cfg, torch.float32, "meta")
+    for k, (n, t) in enumerate(list(p.named_parameters())):
+        mod, _, attr = n.rpartition(".")
+        stack = mod in ("wi", "wg", "wo")
+        w = torch.empty(((hi - lo,) + tuple(t.shape[1:])) if stack
+                        else t.shape, device=dev)
+        scale = t.shape[-2] ** -0.5
+        if stack:
+            for e in range(lo, hi):
+                normal_(w[e - lo], torch.Generator(dev).manual_seed(
+                    SEED + 1000 * k + e), scale)
+        else:
+            normal_(w, gen, scale)
+        setattr(p.get_submodule(mod), attr, nn.Parameter(w))
+    return p
+
+
+def ep_inputs(cfg, dev):
+    """Part 3's seeded (x, w) of ``MESH_EP_TOKENS`` positions."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    shape = MESH_EP_TOKENS + (cfg.d_model,)
+    return (torch.randn(shape, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev))
+
+
+def ep_run(layer, p, cfg, x, w):
+    """``layer`` (``moe_apply`` or ``moe_layer``) forward and backward of
+    ``sum(out * w) + aux``: (out, aux, x's gradient, ms by CUDA
+    events)."""
+    import torch
+    for t in p.parameters():
+        t.grad = None
+    x = x.clone().requires_grad_()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out, aux = layer(p, cfg, x)
+    ((out * w).sum() + aux).backward()
+    stop.record()
+    stop.synchronize()
+    return out.detach(), aux.detach(), x.grad, start.elapsed_time(stop)
+
+
+def mesh_ep(dev) -> None:
+    """Part 3: ``moe_layer`` alone at full width with all 160 experts on a
+    gloo (1, 2) mesh in two workers (80 experts each, drawn there as here
+    by ``ep_layer``), forward and backward, against ``moe_apply`` here:
+    output, aux and the gradients of x, the router, the experts and the
+    shared experts within ``MESH_EP_TOL``.  Each worker hands its results
+    over in place through CUDA IPC (its allocator without expandable
+    segments, which a process cannot open on this kernel, for want of
+    ``pidfd_open``) and keeps them until this process has compared them."""
+    import pickle
+    import torch
+    from repro_torch.models import moe
+    cfg = family_cfg(MESH_ARCH, compute_dtype="float32")
+    t0 = time.perf_counter()
+    p = ep_layer(cfg, dev, 0, cfg.num_experts)
+    x, w = ep_inputs(cfg, dev)
+    out, aux, gx, plain_ms = ep_run(moe.moe_apply, p, cfg, x, w)
+    want = {"out": out, "aux": aux, "grad.x": gx}
+    want.update({f"grad.{n}": t.grad for n, t in p.named_parameters()})
+    expert_bytes = sum(p.get_parameter(f"{k}.w").numel() * 4
+                       for k in ("wi", "wg", "wo"))
+    say(f"[mesh] part 3: {cfg.name} moe layer, {cfg.num_experts} experts "
+        f"({expert_bytes:,} B of f32 expert weights), (B, S) = "
+        f"{MESH_EP_TOKENS}: moe_apply forward and backward here "
+        f"{plain_ms:.3f} ms; drawn and run in {time.perf_counter() - t0:.2f}"
+        f" s")
+    del p, x, w, out, aux, gx
+    errors = [None, None]
+
+    def compare(procs, deadline):
+        for r in range(2):
+            path = os.path.join(MESH_DIR, f"ep_handles{r}.pkl")
+            while not os.path.isfile(path):
+                if any(q.poll() not in (None, 0) for q in procs) or \
+                        time.perf_counter() > deadline:
+                    raise AssertionError("[mesh] part 3: a worker ended "
+                                         "before its results")
+                time.sleep(0.2)
+            with open(path, "rb") as f:
+                got = {k: fn(*args) for k, (fn, args) in
+                       pickle.load(f).items()}
+            lo, hi = got.pop("experts").tolist()
+            errors[r] = {}
+            for k, t in got.items():
+                ref = want[k]
+                if k in ("grad.wi.w", "grad.wg.w", "grad.wo.w"):
+                    ref = ref[lo:hi]
+                errors[r][k] = float((t - ref).abs().max()
+                                     / ref.abs().max())
+            del got, t
+            torch.cuda.synchronize()
+        with open(os.path.join(MESH_DIR, "ep_release"), "w"):
+            pass
+
+    env = dict(os.environ)
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+    t0 = time.perf_counter()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    try:
+        reports = mesh_spawn("ep", {}, env=env, meanwhile=compare)
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    for r, rep in enumerate(reports):
+        say(f"[mesh] part 3 rank {r}: experts {rep['experts']}, forward and "
+            f"backward {[round(t, 3) for t in rep['step_ms']]} ms by CUDA "
+            f"events (first call, second), peak max_memory_allocated "
+            f"{rep['peak']:,} B; largest relative difference from "
+            f"moe_apply {errors[r]}")
+        bad = {k: e for k, e in errors[r].items() if not e <= MESH_EP_TOL}
+        if bad:
+            raise AssertionError(f"[mesh] part 3 rank {r}: {bad}")
+    del want
+    say(f"[mesh] part 3: workers {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_launcher(proc, t0) -> None:
+    """Part 5: ``python -m torch.distributed.run --nproc-per-node 8 -m
+    repro_torch.launch.train ... --mesh test`` on the card (8 gloo ranks on
+    cuda:0), started as ``proc`` at ``t0`` (``mesh_phase`` runs parts 1
+    and 3 meanwhile): exit 0, finite losses, every rank's final state
+    digest equal."""
+    try:
+        out, err = proc.communicate(timeout=MESH_WORKER_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    for line in out.splitlines():
+        say(f"[mesh] launcher: {line}")
+    if proc.returncode != 0:
+        say(err[-4000:])
+        raise AssertionError(f"[mesh] the launcher exited "
+                             f"{proc.returncode}")
+    digests = dict(re.findall(
+        r"rank (\d+): final state sha256 ([0-9a-f]{64})", out))
+    losses = [float(v) for v in re.findall(r" loss (\S+) ", out)]
+    say(f"[mesh] part 5: torch.distributed.run {' '.join(MESH_LAUNCH)}: "
+        f"exit 0 {secs:.1f} s after its start, losses {losses}, "
+        f"{len(digests)} ranks' digests, {len(set(digests.values()))} "
+        f"distinct")
+    if sorted(digests) != [str(r) for r in range(8)] or \
+            len(set(digests.values())) != 1:
+        raise AssertionError(f"[mesh] part 5 digests {digests}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[mesh] part 5 losses {losses}")
+
+
+def mesh_worker(part: str, rank: int) -> int:
+    """One gloo rank of part 2 (``zero``) or part 3 (``ep``) on the card;
+    writes its report and returns 0 when every check held."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.dist import make_mesh, set_mesh
+    from repro_torch.kernels import launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with open(os.path.join(MESH_DIR, f"{part}.json")) as f:
+        cfg_in = json.load(f)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(MESH_DIR, part + '_s')}",
+        rank=rank, world_size=2)
+    pre = f"[mesh] {part} rank {rank}:"
+    report = {}
+    try:
+        mesh = make_mesh((2, 1) if part == "zero" else (1, 2))
+        set_mesh(mesh)
+        if part == "zero":
+            report = zero_worker(cfg_in, mesh, dev, pre)
+        else:
+            report = ep_worker(cfg_in, mesh, dev, pre)
+        set_mesh(None)
+    finally:
+        dist.destroy_process_group()
+    report["launches"] = dict(launch_counts)
+    report["peak"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(MESH_DIR, f"{part}_report{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def zero_worker(cfg_in, mesh, dev, pre) -> dict:
+    """Part 2's rank: a ``Trainer`` of one in-place sharded step, its state
+    written by rank 0 as the final checkpoint; reports the step's loss,
+    grad norm and ms and the state's fingerprints."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = family_cfg(MESH_ARCH, **cfg_in["changes"])
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **MESH_ZERO_OPT)
+    b, s = cfg_in["batch"]
+    ms, metrics = [], []
+    step = timed_step(steps.make_train_step(cfg, opt_cfg, donate=True,
+                                            mesh=mesh), ms)
+
+    def recorded(state, batch):
+        state, met = step(state, batch)
+        metrics.append({k: float(v) for k, v in met.items()})
+        return state, met
+    t0 = time.perf_counter()
+    tr = Trainer(TrainerConfig(total_steps=1, donate=True, ckpt_async=False,
+                               ckpt_dir=cfg_in["ckpt"]),
+                 cfg, opt_cfg, recorded, SyntheticLM(DataConfig(
+                     vocab_size=cfg.vocab_size, global_batch=b, seq_len=s)),
+                 init_generator=torch.Generator(dev).manual_seed(SEED + 7),
+                 device=dev, mesh=mesh)
+    made = time.perf_counter() - t0
+    held = sum(p.to_local().numel() * 4
+               for p in tr.state["params"].parameters())
+    t0 = time.perf_counter()
+    tr.run()
+    run_s = time.perf_counter() - t0
+    prints = {k: fingerprint(t) for k, t in state_tensors(tr.state).items()}
+    say(f"{pre} Trainer made (state drawn whole, then its blocks) in "
+        f"{made:.2f} s, {held:,} B of parameter blocks; run (1 step and "
+        f"the final checkpoint) {run_s:.2f} s, step {ms[0]:.3f} ms")
+    return {**metrics[0], "step_ms": ms[0], "save_s": run_s - ms[0] / 1e3,
+            "fingerprints": prints}
+
+
+def ep_worker(cfg_in, mesh, dev, pre) -> dict:
+    """Part 3's rank: its 80 experts drawn by ``ep_layer``, ``moe_layer``
+    forward and backward twice (the first call includes the set-up); the
+    second's results handed to the parent through CUDA IPC, kept until
+    the parent has compared them."""
+    import pickle
+    import torch
+    from torch.multiprocessing.reductions import reduce_tensor
+    from repro_torch.models import moe
+    cfg = family_cfg(MESH_ARCH, compute_dtype="float32")
+    el = cfg.num_experts // mesh.size(1)
+    lo = mesh.get_local_rank("model") * el
+    p = ep_layer(cfg, dev, lo, lo + el)
+    x, w = ep_inputs(cfg, dev)
+    ms = []
+    for _ in range(2):
+        out, aux, gx, t = ep_run(moe.moe_layer, p, cfg, x, w)
+        ms.append(t)
+    got = {"experts": torch.tensor([lo, lo + el], device=dev), "out": out,
+           "aux": aux, "grad.x": gx}
+    got.update({f"grad.{n}": t.grad for n, t in p.named_parameters()})
+    rank = mesh.get_local_rank("model")
+    path = os.path.join(MESH_DIR, f"ep_handles{rank}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump({k: reduce_tensor(v) for k, v in got.items()}, f)
+    os.rename(path + ".tmp", path)
+    release = os.path.join(MESH_DIR, "ep_release")
+    deadline = time.perf_counter() + MESH_WORKER_TIMEOUT
+    while not os.path.isfile(release):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{pre} the parent never released")
+        time.sleep(0.2)
+    return {"experts": [lo, lo + el], "step_ms": ms}
+
+
+def mesh_phase(dev) -> None:
+    """The ``[mesh]`` phase: parts 1-5 (see the module's docstring); the
+    launcher (part 5) runs beside parts 1 and 3, and part 2's workers
+    start once it has ended (they need most of the card)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh, set_mesh
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "8", "-m", "repro_torch.launch.train",
+         *MESH_LAUNCH, "--ckpt-dir", os.path.join(MESH_DIR, "launch")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(MESH_DIR, 'store1')}",
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            set_mesh(mesh)
+            for name, part in (("1", lambda: mesh_world1(mesh, dev)),
+                               ("3", lambda: mesh_ep(dev)),
+                               ("5", lambda: mesh_launcher(launcher,
+                                                           t_phase)),
+                               ("2 and 4", lambda: mesh_zero(mesh, dev))):
+                t0 = time.perf_counter()
+                part()
+                torch.cuda.empty_cache()
+                say(f"[mesh] part {name}: {time.perf_counter() - t0:.1f} s")
+        finally:
+            set_mesh(None)
+            dist.destroy_process_group()
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    say(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -4123,6 +4806,8 @@ def dispatch_phase(dev) -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-worker"]:
         return sharded_worker(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2], int(sys.argv[3]))
     # the phases path allocates and frees tens of GB of (T, R) tensors of
     # several sizes per call; growable segments keep the cache from
     # fragmenting (read when the allocator starts, before any allocation)
@@ -4283,6 +4968,12 @@ def main() -> int:
     if any(launch_counts.values()):
         raise AssertionError(f"[families] launched {dict(launch_counts)}; "
                              f"these families run no kernel of this port")
+    reset_launch_counts()
+    mesh_phase(dev)
+    say(f"[mesh] kernel launches of the phase: {dict(launch_counts)}")
+    if any(launch_counts.values()):
+        raise AssertionError(f"[mesh] launched {dict(launch_counts)}; the "
+                             f"mesh substrate runs no kernel of this port")
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()

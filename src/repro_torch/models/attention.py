@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.dist import context as dist_context
+
 from .modules import (apply_rope, linear, linear_init, rmsnorm,
                       rmsnorm_init, rope_angles, rope_freqs)
 
@@ -110,6 +112,25 @@ def _chunked_attn(q, k, v, *, offset, window, chunk: int = 1024,
     return out.to(q.dtype).permute(0, 3, 1, 2, 4)   # (B,Sq,KV,G,hd)
 
 
+def _attn_constrain(q5, k, v):
+    """The reference's attention anchors: kv heads over ``model`` where
+    their count divides it, else the query sequence (context
+    parallelism).  ``constrain`` returns its input (per-rank code)."""
+    mesh = dist_context.get_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return q5, k, v
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    if q5.shape[2] % tp == 0:
+        q5 = dist_context.constrain(q5, "dp", None, "tp", None, None)
+        k = dist_context.constrain(k, "dp", None, "tp", None)
+        v = dist_context.constrain(v, "dp", None, "tp", None)
+    elif q5.shape[1] % tp == 0:
+        q5 = dist_context.constrain(q5, "dp", "tp", None, None, None)
+        k = dist_context.constrain(k, "dp", None, None, None)
+        v = dist_context.constrain(v, "dp", None, None, None)
+    return q5, k, v
+
+
 def gqa_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
     """Training/prefill self-attention. x: (B,S,D); positions: (S,) int."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -122,6 +143,7 @@ def gqa_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
     q = apply_rope(q, cos[None, :, None], sin[None, :, None])
     k = apply_rope(k, cos[None, :, None], sin[None, :, None])
     q = q.reshape(b, s, kvh, g, hd)
+    q, k, v = _attn_constrain(q, k, v)
     if impl == "chunked":
         out = _chunked_attn(q, k, v, offset=0, window=cfg.sliding_window,
                             chunk=chunk)
@@ -227,6 +249,7 @@ def mla_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
                   dim=-1)
     # MLA is MHA (kv heads == heads): the grouped attention with G = 1
     q5 = q.reshape(b, s, h, 1, qk_nope + qk_rope)
+    q5, k, v = _attn_constrain(q5, k, v)
     if impl == "chunked":
         out = _chunked_attn(q5, k, v, offset=0, window=None, chunk=chunk)
     else:

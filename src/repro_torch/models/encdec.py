@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.embed_grad import embedding_lookup
+from repro_torch.dist.context import constrain
 
 from . import attention as attn
 from .modules import (dtype_of, embedding_init, linear, linear_init, rmsnorm,
@@ -63,6 +64,7 @@ def _bidir_attn(p, cfg, x, positions):
     q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
     k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
     q = q.reshape(b, s, kvh, h // kvh, hd)
+    q, k, v = attn._attn_constrain(q, k, v)
     if s > 8192:
         out = attn._chunked_attn(q, k, v, offset=0, window=None,
                                  causal=False)
@@ -78,6 +80,7 @@ def _cross_attn(p, cfg, x, mem_k, mem_v):
     b, sq, _ = x.shape
     skv = mem_k.shape[1]
     q = linear(p.wq, x).reshape(b, sq, kvh, h // kvh, hd)
+    q, mem_k, mem_v = attn._attn_constrain(q, mem_k, mem_v)
     if max(sq, skv) > 8192 and sq > 1:
         out = attn._chunked_attn(q, mem_k, mem_v, offset=0, window=None,
                                  causal=False)
@@ -193,8 +196,8 @@ def forward(params, cfg, batch, *, impl: str | None = None):
     layer = _remat(_dec_layer, cfg)
     for lp in params.dec_layers:
         x = layer(lp, cfg, x, memory, positions, impl)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    logits = constrain(_head(params, cfg, x), "dp", None, "tp")
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(params, cfg, batch):

@@ -6,14 +6,15 @@ attention-like compute *within* chunks (batched matmuls) + a linear
 inter-chunk state recurrence (a loop over n_chunks steps, the reference's
 ``lax.scan``).  Decode is the O(1) recurrent state update, written into
 the caller's state in place.  Both paths share parameters; decode state
-is (conv cache, SSM state).  The reference's ``constrain`` anchors are
-no-ops without a mesh and are left out (ROADMAP queue 1, 13.5).
+is (conv cache, SSM state).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.dist.context import constrain
 
 from .modules import _param, linear, linear_init, normal_, rmsnorm, \
     rmsnorm_init
@@ -111,6 +112,11 @@ def mamba2_apply(p, cfg, u):
     rep = h // g
     bmat = torch.repeat_interleave(bmat, rep, dim=2)          # (B,S,H,N)
     cmat = torch.repeat_interleave(cmat, rep, dim=2)
+    # SSD head parallelism: the head dim over ``model`` (the anchors)
+    x = constrain(x, "dp", None, "tp", None)
+    bmat = constrain(bmat, "dp", None, "tp", None)
+    cmat = constrain(cmat, "dp", None, "tp", None)
+    dt = constrain(dt, "dp", None, "tp")
 
     dt = F.softplus(dt.to(f32) + p.dt_bias.to(f32))           # (B,S,H)
     a = -torch.exp(p.A_log.to(f32))                           # (H,)

@@ -20,8 +20,8 @@ lists for ``group_layers``) and loops over them.  The math is in
 functions of (params, cfg, ...), as in the reference, so one set of
 weights runs under another config's compute dtype; ``Transformer``'s
 methods call them with its own config.  The reference's ``constrain``
-anchors are no-ops without a mesh and are left out on one card (the mesh
-substrate is ROADMAP queue 1, 13.5).  Training's loss is here too
+anchors stand at its sites (``repro_torch.dist.constrain``: per-rank code,
+so they return their input).  Training's loss is here too
 (``parallel_cross_entropy``, ``loss_fn``), and ``forward`` runs each
 layer, and each hybrid group around its layers, under
 ``torch.utils.checkpoint`` when gradients are on, the reference's
@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.embed_grad import embedding_lookup
+from repro_torch.dist.context import constrain
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -67,6 +68,7 @@ def mlp_apply(p, cfg, x):
         h = F.silu(linear(p.wg, x)) * linear(p.wi, x)
     else:
         h = F.gelu(linear(p.wi, x), approximate="tanh")   # jax.nn.gelu
+    h = constrain(h, "dp", None, "tp")     # ff-sharded hidden anchor
     return linear(p.wo, h)
 
 
@@ -93,6 +95,7 @@ def dense_layer_init(generator, cfg, dtype, device=None, *,
 def dense_layer_apply(p, cfg, x, positions, *, impl):
     """One [attn, mlp | moe] layer: (x, the layer's MoE aux loss, 0 for
     an MLP)."""
+    x = constrain(x, "dp", None, None)     # residual-stream anchor
     h = rmsnorm(p.ln1, x, cfg.norm_eps)
     if cfg.attention == "mla":
         h = attn.mla_apply(p.attn, cfg, h, positions=positions, impl=impl)
@@ -175,6 +178,7 @@ def shared_attn_apply(shared, lora, cfg, x, positions, *, impl):
     q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
     k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
     q = q.reshape(b, s, kvh, nh // kvh, hd)
+    q, k, v = attn._attn_constrain(q, k, v)
     if impl == "chunked":
         out = attn._chunked_attn(q, k, v, offset=0, window=None)
     else:
@@ -396,7 +400,8 @@ def forward(params, cfg, batch, *, impl: str | None = None):
                       impl)
     else:
         raise ValueError(cfg.family)
-    return _head(params, cfg, x), aux_total
+    logits = constrain(_head(params, cfg, x), "dp", None, "tp")
+    return logits, aux_total              # keep vocab sharded
 
 
 def _hybrid_group(glayers, lora, shared, cfg, x, positions, impl):
@@ -416,6 +421,7 @@ def parallel_cross_entropy(logits, labels):
     lse = torch.logsumexp(logits, dim=-1)                       # (B,S)
     vocab_iota = torch.arange(logits.shape[-1], dtype=torch.int32,
                               device=logits.device)
+    vocab_iota = constrain(vocab_iota, "tp")       # shard w/ logits
     picked = torch.where(vocab_iota == labels[..., None], logits,
                          0.0).sum(dim=-1)                       # (B,S)
     return lse - picked

@@ -86,15 +86,21 @@ def init_state(params, cfg: AdamWConfig):
     return state
 
 
-def _global_norm(grads):
+def _global_norm(grads, reduce=None):
     """grads: state-dict name -> tensor.  The sum of squares over the
     reference's leaves in its order, a stacked leaf's layers summed
-    first."""
-    total = 0
-    for names in leaf_groups(grads).values():
+    first; with ``reduce``, each leaf's sum is taken over its shards."""
+    keys, sums = [], []
+    for key, names in leaf_groups(grads).items():
         sq = [torch.sum(torch.square(grads[n].to(torch.float32)))
               for n in names]
-        total = total + (sq[0] if len(sq) == 1 else torch.stack(sq).sum())
+        keys.append(key)
+        sums.append(sq[0] if len(sq) == 1 else torch.stack(sq).sum())
+    if reduce is not None:
+        sums = list(reduce(keys, torch.stack(sums), "sum"))
+    total = 0
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -102,10 +108,16 @@ def _dequant(v_q, scale):
     return v_q.to(torch.float32) * scale
 
 
-def _quant(layers):
+def _vmax(layers):
+    return torch.stack([torch.max(torch.abs(v)) for v in layers]).max()
+
+
+def _quant(layers, vmax=None):
     """One reference leaf's second moment, its layers' tensors: int8
-    codes per layer and the one scale of the whole leaf."""
-    vmax = torch.stack([torch.max(torch.abs(v)) for v in layers]).max()
+    codes per layer and the one scale of the whole leaf (``vmax``: the
+    leaf's largest |v| over all its blocks, where a mesh shards it)."""
+    if vmax is None:
+        vmax = _vmax(layers)
     scale = torch.clamp_min(vmax / 127.0, 1e-12)
     q = [torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
          for v in layers]
@@ -114,7 +126,7 @@ def _quant(layers):
 
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, *,
-                  inplace: bool = False):
+                  inplace: bool = False, reduce=None):
     """One AdamW step. Returns (new_params, new_state, metrics).
 
     params: a model or its parameters by state-dict name; grads: the
@@ -122,7 +134,14 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *,
     place (the default) the inputs are left as they are and the new
     parameters are new tensors.  With ``inplace`` the parameters, the
     state's tensors and the gradients are overwritten and returned: the
-    arithmetic is the same, bit for bit."""
+    arithmetic is the same, bit for bit.
+
+    ``reduce``: for a state sharded over a mesh, where the tensors are
+    this rank's blocks, ``reduce(keys, values, op)`` takes one value per
+    reference leaf (by ``leaf_groups`` key) and returns each combined by
+    ``op`` ("sum" or "max") over the ranks that hold the leaf's other
+    blocks: the global norm and the int8 scale see whole leaves, and a
+    replicated leaf counts once (``launch.steps.LeafReduce``)."""
     sched_fn = {"cosine": schedules.cosine, "wsd": schedules.wsd}[cfg.schedule]
     named = _named(params)
     step = state["step"] + 1
@@ -131,7 +150,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *,
 
     grads = {n: torch.zeros_like(p) if grads.get(n) is None else grads[n]
              for n, p in named.items()}
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, reduce)
     clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
 
     bc1 = 1 - cfg.b1 ** step.to(torch.float32)
@@ -147,19 +166,30 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *,
                                            p.to(torch.float32))
         return put(p, newp.to(p.dtype))
 
+    def int8_v(key, n, g):
+        return cfg.b2 * _dequant(state["v_q"][n], state["v_scale"][key]) \
+            + (1 - cfg.b2) * torch.square(g.to(torch.float32))
+
     new_params, new_m = {}, {}
     int8 = cfg.quantize_v == "int8"
+    groups = leaf_groups(named)
+    vmax = {}
+    if int8 and reduce is not None:
+        # every leaf's scale over its blocks in one reduction: each new v
+        # is computed once more here, and no collective runs per leaf
+        keys = list(groups)
+        local = torch.stack([_vmax([int8_v(key, n, grads[n] * clip)
+                                    for n in groups[key]]) for key in keys])
+        vmax = dict(zip(keys, reduce(keys, local, "max")))
     new_v, new_vq, new_vs = {}, {}, {}
-    for key, names in leaf_groups(named).items():
+    for key, names in groups.items():
         vs = []
         for n in names:
             g = put(grads[n], grads[n] * clip)
             m = state["m"][n]
             new_m[n] = put(m, cfg.b1 * m + (1 - cfg.b1) * g.to(m.dtype))
             if int8:
-                vs.append(cfg.b2 * _dequant(state["v_q"][n],
-                                            state["v_scale"][key])
-                          + (1 - cfg.b2) * torch.square(g.to(torch.float32)))
+                vs.append(int8_v(key, n, g))
             else:
                 v = state["v"][n]
                 new_v[n] = put(v, cfg.b2 * v + (1 - cfg.b2) *
@@ -168,7 +198,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *,
         if int8:
             for n, v in zip(names, vs):
                 new_params[n] = update(named[n], new_m[n], v)
-            qs, scale = _quant(vs)
+            qs, scale = _quant(vs, vmax.get(key))
             for n, q in zip(names, qs):
                 new_vq[n] = put(state["v_q"][n], q)
             new_vs[key] = put(state["v_scale"][key], scale)

@@ -16,6 +16,12 @@ Async save: ``save(..., blocking=False)`` copies every leaf to host
 memory first and writes on a background thread — the training loop keeps
 stepping.  The copy matters: ``.numpy()`` of a CPU tensor shares its
 storage, and an in-place step would change the arrays under the writer.
+Under a mesh (``save(..., mesh=...)``), every rank calls it and rank 0
+alone writes its tree (the others may pass ``None``) — eight ranks
+writing one step directory would race — while a blocking save holds
+every rank at a barrier until the write is published.  A restore reads the tree on every rank, and the
+caller puts it onto whatever mesh its run has
+(``Trainer.state_from_host``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import shutil
 import threading
 
 import numpy as np
+import torch.distributed as dist
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 
@@ -56,10 +63,20 @@ def _flatten(tree) -> list:
 
 
 def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True,
-         keep: int = 3) -> threading.Thread | None:
-    """Snapshot ``tree`` (nested dicts of arrays) for ``step``."""
+         keep: int = 3, mesh=None, copy: bool = True
+         ) -> threading.Thread | None:
+    """Snapshot ``tree`` (nested dicts of arrays) for ``step``; with a
+    ``mesh``, only its rank 0 writes (see the module's docstring).
+    ``copy=False`` writes the tree's arrays as they are: for a caller
+    whose tree is its own fresh copy (a gathered state), which no step
+    changes under the writer."""
+    if mesh is not None and dist.get_rank() != 0:
+        if blocking:
+            dist.barrier()
+        return None
     # copy to host memory first (so async writes see a consistent state)
-    host = [(_leaf_name(p), np.array(leaf)) for p, leaf in _flatten(tree)]
+    host = [(_leaf_name(p), np.array(leaf, copy=copy or None))
+            for p, leaf in _flatten(tree)]
     manifest = {
         "step": int(step),
         "leaves": [{"name": n, "shape": list(a.shape), "dtype": str(a.dtype)}
@@ -81,6 +98,8 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True,
 
     if blocking:
         _write()
+        if mesh is not None:
+            dist.barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()

@@ -11,9 +11,15 @@
   thread, one save in flight at a time.
 * **preemption hooks** — ``request_stop()`` (wired to SIGTERM and SIGINT in
   launch/train.py) finishes the current step, saves, and exits cleanly.
-* **host snapshots** — ``state_to_host``/``state_from_host`` move the
-  state through host memory onto a device; the reference's resharding
-  onto another mesh waits for the mesh substrate (ROADMAP queue 1, 13.5).
+* **elastic scaling** — ``state_to_host``/``state_from_host`` move the
+  state through host memory, onto one device or onto a *different* mesh
+  (``state_from_host(host_state, mesh, state_shardings)``): restart a
+  smaller fleet from the same checkpoint.
+* **sharded state** — with a ``mesh`` and ``state_shardings``
+  (``launch.steps.train_state_shardings``), the state lives as ``DTensor``
+  blocks, ZeRO over the data axes; a fresh state is drawn the same on
+  every rank (one seeded generator) and then distributed, and a
+  checkpoint is written by rank 0 while every rank waits for it.
 * **NaN/overflow guard** — skip-and-log on non-finite loss.
 * **step-time watchdog** — flags steps slower than ``straggler_factor`` x
   the trailing median.
@@ -34,9 +40,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import steps
 from repro_torch.models import build_model
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw
@@ -69,12 +77,17 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, model_cfg,
                  opt_cfg: adamw.AdamWConfig, train_step: Callable,
                  data_source, *, init_generator=None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, mesh=None, state_shardings=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.data = data_source
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and state_shardings is None:
+            state_shardings = steps.train_state_shardings(
+                mesh, steps.abstract_train_state(model_cfg, opt_cfg))
+        self.state_shardings = state_shardings
         self.train_step = train_step
         self._stop = False
         self._ckpt_thread = None
@@ -88,11 +101,15 @@ class Trainer:
         step, restored = ckpt.restore_latest(cfg.ckpt_dir, like)
         if restored is not None:
             self.start_step = step
-            self.state = self.state_from_host(restored, self.device)
+            self.state = self.state_from_host(restored, self.mesh,
+                                              self.state_shardings)
         else:
             self.start_step = 0
-            self.state = self._state_of(build_model(
-                model_cfg, device=self.device, generator=init_generator))
+            model = build_model(model_cfg, device=self.device,
+                                generator=init_generator)
+            self.state = self._state_of(model) if self.mesh is None else \
+                steps.init_sharded_state(model, opt_cfg, self.mesh,
+                                         self.state_shardings)
 
     def _state_of(self, params):
         return {"params": params,
@@ -101,15 +118,29 @@ class Trainer:
     def request_stop(self, *_):
         self._stop = True
 
-    # ---- host snapshots --------------------------------------------------------
-    def state_to_host(self):
-        return convert.train_state_to_jax(self.state)
+    # ---- host snapshots and elastic rescale ---------------------------------
+    def state_to_host(self, *, rank0_only: bool = False):
+        """The state as the reference's tree of numpy arrays.  On a mesh the
+        blocks are gathered first (a collective: every rank calls it), each
+        tensor copied to the host as soon as it is whole; with
+        ``rank0_only`` only rank 0 keeps the copies (the others return
+        ``None``): a checkpoint's writer."""
+        if self.mesh is None:
+            return convert.train_state_to_jax(self.state)
+        mine = not rank0_only or dist.get_rank() == 0
+        state = steps.gather_state(self.state, "cpu" if mine else "meta")
+        return convert.train_state_to_jax(state) if mine else None
 
-    def state_from_host(self, host_state, device):
+    def state_from_host(self, host_state, mesh=None, state_shardings=None):
         """A host snapshot (the reference's tree of arrays) as a train
-        state on ``device``."""
-        return convert.train_state_from_jax(self.model_cfg, host_state,
-                                            device=device)
+        state on the trainer's device, and with a mesh and its shardings,
+        resharded onto that mesh — which may differ from the one the
+        snapshot came from (elastic restart)."""
+        state = convert.train_state_from_jax(self.model_cfg, host_state,
+                                             device=self.device)
+        if mesh is None:
+            return state
+        return steps.shard_state(state, mesh, state_shardings)
 
     # ---- the loop --------------------------------------------------------------
     def run(self) -> dict:
@@ -163,5 +194,6 @@ class Trainer:
             self._ckpt_thread.join()        # one async save in flight max
         blocking = (not self.cfg.ckpt_async) if blocking is None else blocking
         self._ckpt_thread = ckpt.save(
-            self.cfg.ckpt_dir, step, self.state_to_host(),
-            blocking=blocking, keep=self.cfg.keep_ckpts)
+            self.cfg.ckpt_dir, step, self.state_to_host(rank0_only=True),
+            blocking=blocking, keep=self.cfg.keep_ckpts, mesh=self.mesh,
+            copy=self.mesh is None)

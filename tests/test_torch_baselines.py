@@ -23,11 +23,15 @@ from repro_torch.engine import (BASELINE_KINDS, BaselinePlan,  # noqa: E402
 TOL = {np.float32: 5e-4, np.float64: 1e-10}
 RANK = 5
 BUDGET = 1 << 30
-# (dims, nnz, dist): order 3 with repeated targets (a powerlaw draw), and
-# order 4 with a 2-row mode (long fibers, one segment holding many nnz)
+# (dims, nnz, dist): order 3 with repeated targets (a powerlaw draw),
+# order 4 with a 2-row mode (long fibers, one segment holding many nnz),
+# and order 3 with a mode of 70,000 rows
 CASES = {
     "order3": ((20, 15, 12), 700, "powerlaw"),
     "order4": ((13, 2, 29, 5), 500, "uniform"),
+    # a mode above 2^16 rows: F-COO sorts its key as int64 there, as
+    # 16-bit keys elsewhere
+    "wide": ((70_000, 9, 6), 400, "uniform"),
 }
 HOST = {"coo": (baselines.COOFormat, rcore.COOFormat),
         "fcoo": (baselines.FCOOFormat, rcore.FCOOFormat),

@@ -47,10 +47,12 @@ DIFFERENCES = [
      "init_cache(batch, max_len, enc_len=1024, dtype), prefill_memory and "
      "decode_step run under its config: the reference's Model facade of "
      "models/model.py over a params pytree"),
-    ("src/repro_torch/models/encdec.py", "src/repro/models/encdec.py",
-     "constrain", "reference",
-     "no constrain anchors: they are no-ops without a mesh (ROADMAP queue "
-     "1, 13.5)"),
+    ("src/repro_torch/launch/mesh.py", "src/repro/launch/mesh.py",
+     "compat", "reference",
+     "dist/compat.py has no counterpart: it wraps shard_map and make_mesh "
+     "across jax releases; the port's meshes are DeviceMeshes over the "
+     "default process group (repro_torch.dist.make_mesh) and its SPMD "
+     "code is per-rank"),
 ]
 
 

@@ -75,11 +75,16 @@ DIFFERENCES = [
      "temperature sampling's draws: Gumbel-max over torch.rand from a "
      "generator seeded by ServeConfig.seed, the law of "
      "jax.random.categorical with other draws"),
-    ("models/transformer.py", "constrain", "reference",
-     "no constrain anchors: they are no-ops without a mesh, and the mesh "
-     "substrate is ROADMAP queue 1, 13.5"),
-    ("models/attention.py", "_attn_constrain", "reference",
-     "no constrain anchors in attention either"),
+    ("dist/context.py", "with_sharding_constraint", "reference",
+     "constrain returns its input (the local tensor): the reference hands "
+     "each anchor to GSPMD as a layout hint; the port runs per-rank code, "
+     "in which each rank already holds its block"),
+    ("models/moe.py", "_ToModel", "port",
+     "the model axis splits only the experts (moe_apply_sharded, whose "
+     "replicated inputs' gradients are summed over model on the way "
+     "back): the tensor parallelism GSPMD derives from the anchors for the "
+     "dense layers is not split in the port; the values are equal and "
+     "that work is repeated on every model rank"),
     ("serving/decode.py", "device", "port",
      "Server(cfg, serve_cfg, model, device=...): the server takes the "
      "port's module (its parameters inside) and runs on the card unless "

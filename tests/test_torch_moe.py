@@ -16,7 +16,8 @@ expert), the reference's weights carried in by ``convert.params_from_jax``
   the capacity on the host, ``mla_apply`` and ``mla_decode`` alone with
   and without ``q_lora_rank``;
 * ``Server.generate`` and the Trainer against the reference's, and the
-  entry points with ``--arch``.
+  entry points with ``--arch``; ``moe_layer``'s choice of the sharded
+  layer under a ``model`` axis.
 
 In bf16 a last-bit difference in the router's logits could pick another
 expert; on these inputs the picks agree (``top_e`` is held equal) and the
@@ -54,14 +55,17 @@ NAMES = ["dbrx_132b", "deepseek_v2_236b"]
 # other's does not, why).  Paths are from the repo's root.
 DIFFERENCES = [
     ("src/repro_torch/models/moe.py", "src/repro/models/moe.py",
-     "moe_apply_sharded", "reference",
-     "expert parallelism over the mesh's model axis needs the mesh "
-     "substrate (ROADMAP queue 1, 13.5): under a mesh with a 'model' "
-     "axis the port's moe_layer raises NotImplementedError naming 13.5 "
-     "instead of running the unsharded path"),
+     "shard_map", "reference",
+     "moe_apply_sharded is per-rank code, not a shard_map: x is this "
+     "rank's rows, the expert weights all E (the rank takes its block) or "
+     "only its E/tp, and its gradients are those of its data shard's "
+     "objective (aux: this shard's, its value averaged over the data "
+     "axes), which the sharded train step averages"),
     ("src/repro_torch/models/moe.py", "src/repro/models/moe.py",
-     "NotImplementedError", "port",
-     "the sharded MoE's refusal, above"),
+     "_SumOverModel", "port",
+     "psum(combined, 'model') is an all_reduce whose backward is the "
+     "identity: torch.distributed.nn's all-reduce would send another "
+     "all-reduce back, tp times the reference's gradient"),
     ("src/repro_torch/models/moe.py", "src/repro/models/moe.py",
      "_combine", "port",
      "the slabs and the combine are gathers, not scatter-adds: each token's "
@@ -215,20 +219,29 @@ def test_capacity_is_the_reference_rounding():
                 t * c.top_k / c.num_experts * c.capacity_factor)))
 
 
-def test_sharded_moe_raises_naming_the_mesh_substrate(monkeypatch):
-    """Under a mesh with a ``model`` axis the reference runs expert
-    parallelism; the port refuses rather than run the unsharded path."""
+def test_moe_layer_is_sharded_under_a_model_axis(monkeypatch):
+    """Under a mesh with a ``model`` axis ``moe_layer`` runs
+    ``moe_apply_sharded`` on that mesh; without one (or with no ``model``
+    axis) ``moe_apply`` (tests/test_torch_expert_parallel.py runs the
+    sharded layer on gloo ranks)."""
     import repro_torch.dist as dist
 
     class Mesh:
         mesh_dim_names = ("data", "model")
+    mesh = Mesh()
     cfg, _, _, p = _moe_pair("float32")
-    monkeypatch.setattr(dist, "get_mesh", lambda: Mesh())
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="13.5"):
-        moe.moe_layer(p, cfg, x)
+    calls = []
+    monkeypatch.setattr(moe, "moe_apply_sharded",
+                        lambda *a: calls.append(a) or ("sharded", None))
+    monkeypatch.setattr(dist, "get_mesh", lambda: mesh)
+    assert moe.moe_layer(p, cfg, x)[0] == "sharded"
+    assert calls[0][3] is mesh and calls[0][2] is x
+    mesh.mesh_dim_names = ("data",)
+    assert moe.moe_layer(p, cfg, x)[0].shape == x.shape
     monkeypatch.setattr(dist, "get_mesh", lambda: None)
     assert moe.moe_layer(p, cfg, x)[0].shape == x.shape
+    assert len(calls) == 1
 
 
 # ------------------------------------------------------------- MLA alone

@@ -62,10 +62,11 @@ DIFFERENCES = [
      "reference's exp overflows above the diagonal once the chunk passes "
      "about 128 positions (the configs' 256), and its backward gives "
      "0 * inf = NaN; the port's gradients there are finite"),
-    ("src/repro_torch/models/ssm.py", "src/repro/models/ssm.py",
-     "constrain", "reference",
-     "no constrain anchors: they are no-ops without a mesh (ROADMAP queue "
-     "1, 13.5)"),
+    ("src/repro_torch/dist/context.py", "src/repro/dist/context.py",
+     "NamedSharding", "reference",
+     "the SSD's head-parallel anchors (and every other) name a layout the "
+     "port does not build: constrain returns its input, and under a mesh "
+     "every model rank runs all the heads"),
     ("src/repro_torch/models/ssm.py", "src/repro/models/ssm.py", "copy_",
      "port",
      "mamba2_decode writes the conv ring and the SSM state into the "

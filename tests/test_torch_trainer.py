@@ -349,7 +349,7 @@ def test_state_through_the_host(tiny):
     tr = _trainer(tc, cfg, opt_cfg, data)
     tr.run()
     host = tr.state_to_host()
-    back = tr.state_from_host(host, "cpu")
+    back = tr.state_from_host(host)
     for a, b in zip(jax.tree.leaves(host),
                     jax.tree.leaves(train_state_to_jax(back))):
         assert np.array_equal(a, b)
@@ -628,8 +628,13 @@ def test_launch_train_on_the_cpu(tmp_path, monkeypatch):
         assert stop.__name__ == "request_stop" and restored is signal.SIG_DFL
 
 
-@pytest.mark.parametrize("mesh", ["test", "single", "multi"])
-def test_launch_train_refuses_a_mesh(mesh):
-    with pytest.raises(NotImplementedError, match="13.5"):
+@pytest.mark.parametrize("mesh,world", [("test", 8), ("single", 256),
+                                        ("multi", 512)])
+def test_launch_train_refuses_a_mesh(mesh, world, monkeypatch):
+    """Outside a process group of the mesh's size, ``--mesh`` raises a
+    ``ValueError`` naming the world it needs (under
+    ``torch.distributed.run``: tests/test_torch_sharded_train.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=f"needs a world of {world} ranks"):
         launch_train.main(["--arch", "minicpm-2b", "--reduced", "--mesh",
                            mesh, "--device", "cpu"])

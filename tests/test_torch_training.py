@@ -92,9 +92,10 @@ DIFFERENCES = [
      "explicit torch.Generator on its device, in place of a Model and a "
      "JAX key; the fresh state is drawn there"),
     ("src/repro_torch/train/trainer.py", "src/repro/train/trainer.py",
-     "state_shardings", "reference",
-     "state_from_host(host_state, device): a host snapshot goes onto one "
-     "device; resharding onto a mesh waits for ROADMAP 13.5"),
+     "rank0_only", "port",
+     "under a mesh the state is gathered tensor by tensor and only rank 0 "
+     "keeps a host copy and writes the checkpoint (every rank waits for "
+     "it): the reference's ranks are one process's devices"),
     ("chip_smoke.py", "tests/test_trainer.py", "RESUME_TOL", "port",
      "on the card a resumed run is held within 1e-6 of the straight run, "
      "the reference test's own bound, under "
@@ -103,9 +104,25 @@ DIFFERENCES = [
      "that to a few lr in places at full width (printed, not gated); "
      "bitwise on the CPU, test_torch_trainer.py::test_resume_bit_exact"),
     ("src/repro_torch/launch/train.py", "src/repro/launch/train.py",
-     "NotImplementedError", "port",
-     "--mesh test|single|multi raise, naming ROADMAP 13.5; --mesh none "
-     "runs on one device"),
+     "init_process_group", "port",
+     "--mesh test|single|multi join the process group their caller "
+     "starts (python -m torch.distributed.run), of as many ranks as the "
+     "mesh holds, and raise a ValueError naming that count otherwise; the "
+     "backend is gloo on the host or on a shared card, NCCL where each "
+     "rank has a card"),
+    ("tests/test_torch_sharded_train.py", "tests/test_distributed.py",
+     "CODE_STEP", "port",
+     "against the reference's sharded step the int8 second moment's codes "
+     "are held within one code (3 of dbrx reduced()'s codes, the rest "
+     "equal): a v that the reordered reductions move across a code's "
+     "midpoint rounds to its neighbour; v_scale and every other leaf are "
+     "held at 1e-5"),
+    ("src/repro_torch/launch/steps.py", "src/repro/launch/steps.py",
+     "data_rows", "port",
+     "the sharded step is per-rank code: each rank gathers the parameters, "
+     "runs its B / dp rows of the batch and averages the gradients over "
+     "the data axes; a batch the data axes do not divide raises, where "
+     "the reference's _batch_spec replicates it"),
     ("src/repro_torch/train/checkpoint.py", "src/repro/train/checkpoint.py",
      "asarray", "reference",
      "the async snapshot copies every leaf (np.array): .numpy() of a CPU "
