@@ -236,6 +236,7 @@ no result.
 from __future__ import annotations
 
 import itertools
+import atexit
 import json
 import math
 import os
@@ -244,6 +245,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -608,6 +610,12 @@ def mean_run_length(cache, mode) -> float:
     return tgt.numel() / runs
 
 
+def timed(fn, *args, **kw):
+    """``(fn(*args, **kw), its seconds)``."""
+    t0 = time.perf_counter()
+    return fn(*args, **kw), time.perf_counter() - t0
+
+
 def run_tensor(name, dims, nnz, dev) -> dict:
     """One tensor through the main path; returns what the timing needs."""
     import torch
@@ -625,15 +633,16 @@ def run_tensor(name, dims, nnz, dev) -> dict:
     top_s = time.perf_counter() - t0
     head_nnz = head.nnz
     del head
-    t0 = time.perf_counter()
-    b = build_blco(t)
-    build_s = time.perf_counter() - t0
+    # both builds at once: host numpy sorts, which release the GIL
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        whole = pool.submit(timed, build_blco, t)
+        streamed = pool.submit(timed, build_blco, t,
+                               max_nnz_per_block=STREAM[name][0])
+        (b, build_s), (bs, stream_s) = whole.result(), streamed.result()
     norm_x = float(np.sqrt(np.sum(t.values.astype(np.float64) ** 2)))
-    t0 = time.perf_counter()
-    bs = build_blco(t, max_nnz_per_block=STREAM[name][0])
     say(f"[stream] {name}: build_blco(max_nnz_per_block="
-        f"{STREAM[name][0]}) {time.perf_counter() - t0:.1f} s, launches "
-        f"{[l.nnz for l in bs.launches]}")
+        f"{STREAM[name][0]}) {stream_s:.1f} s (its thread, beside the "
+        f"main build), launches {[l.nnz for l in bs.launches]}")
     say(f"[main] {name}: dims {dims} nnz {b.nnz}, of which the powerlaw "
         f"head {head_nnz} ({head_nnz / b.nnz:.4f}) and the uniform top-up "
         f"{b.nnz - head_nnz}; host generation: head {head_s:.1f} s, top-up "
@@ -1087,28 +1096,40 @@ def timing_phase(runs) -> dict:
     return rows
 
 
-def uniform_timing(dev) -> None:
-    """K1 on every mode of a stream without hot rows: NELL-2's dims and nnz,
-    every coordinate drawn uniformly (the main path's tensors have a
-    powerlaw head, whose hottest rows K1's per-CTA table takes off L2)."""
+def uniform_blco():
+    """The uniform stream's BLCO, built on the host: NELL-2's dims and nnz,
+    every coordinate drawn uniformly."""
+    from repro_torch.core import SparseTensor, build_blco, top_up_uniform
+    dims, nnz = TENSORS["nell-2"]
+    empty = SparseTensor(dims, np.zeros((0, len(dims)), np.int64),
+                         np.zeros(0, np.float32))
+    return build_blco(top_up_uniform(empty, nnz, seed=SEED))
+
+
+def uniform_timing(built, dev) -> None:
+    """K1 on every mode of a stream without hot rows (the main path's
+    tensors have a powerlaw head, whose hottest rows K1's per-CTA table
+    takes off L2).  ``built``: the future of ``timed(uniform_blco)``,
+    which a host thread runs beside the earlier phases."""
     import torch
-    from repro_torch.core import (SparseTensor, build_blco, choose_resolution,
-                                  init_factors, top_up_uniform)
+    from repro_torch.core import choose_resolution, init_factors
     from repro_torch.core.launches import LaunchCache
     from repro_torch.kernels import fused
     name = "nell-2-uniform"
-    dims, nnz = TENSORS["nell-2"]
+    dims, _ = TENSORS["nell-2"]
     t0 = time.perf_counter()
-    empty = SparseTensor(dims, np.zeros((0, len(dims)), np.int64),
-                         np.zeros(0, np.float32))
-    b = build_blco(top_up_uniform(empty, nnz, seed=SEED))
+    b, host_s = built.result()
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cache = LaunchCache.from_blco(b, device=dev)
     hi, lo, vals, bases = cache.flat()
     fs = init_factors(dims, RANK, seed=SEED, device=dev)
     torch.cuda.synchronize()
     say(f"[uniform] {name}: dims {dims} nnz {b.nnz}, T {hi.shape[0]}, "
-        f"host generation + build_blco + upload "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"host generation + build_blco {host_s:.1f} s (a thread beside the "
+        f"phases, stream and disk paths; {wait_s:.1f} s waited for it), "
+        f"upload {time.perf_counter() - t0:.1f} s")
+    del b
     for mode, d in enumerate(dims):
         variant = fused._variant_for(choose_resolution(d), d, rank=RANK,
                                      itemsize=4)
@@ -1563,11 +1584,14 @@ def device_peaks(rates, dev) -> tuple[dict, float]:
 
 def store_read_peak(plan) -> float:
     """GB/s of the store's best chunk read (``StoredBLCO.chunk_into``, the
-    memmap copy into the plan's pinned ring), over three passes."""
-    stored, bufs = plan.stored, plan.buffers.host_set(0)
+    memmap copy into the plan's pinned ring) as the sweep reads: chunk i
+    into host set i mod queues, every set of the ring in turn, over as
+    many passes as a sweep makes (one per mode)."""
+    stored, ring = plan.stored, plan.buffers
     best = math.inf
-    for _ in range(3):
+    for _ in range(stored.order):
         for i in range(stored.num_launches):
+            bufs = ring.host_set(i % ring.queues)
             t0 = time.perf_counter()
             stored.chunk_into(i, bufs)
             best = min(best, time.perf_counter() - t0)
@@ -1635,8 +1659,8 @@ def obs_phase(runs, rates, dev) -> dict:
         tensor_peaks = dict(peaks)
         tensor_peaks[ledger.DISK_HOST] = disk_peak
         say(f"[obs] {name}: disk-to-host peak {disk_peak:.3f} GB/s (the "
-            f"store's best chunk read into the pinned ring, three passes "
-            f"before and after the sweeps)")
+            f"store's best chunk read into each set of the pinned ring in "
+            f"turn, one pass per mode before and after the sweeps)")
         roof = obs.roofline_report(peaks=tensor_peaks, peak_flops=peak_flops)
         worst = 0.0
         for regime, rep in roof["regimes"].items():
@@ -2473,13 +2497,22 @@ def conflict_check(runs) -> dict:
     from repro_torch.analysis.trace import (conflict_report, k4_runs,
                                             report_runs)
     from repro_torch.kernels import launch_counts
+    # the reports are host numpy, which releases the GIL: one thread per
+    # (tensor, mode), all at once
+    pairs = [(run, mode) for run in runs for mode, *_ in run["modes"]]
+    t_reports = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(pairs)) as pool:
+        reports = dict(zip(
+            [(run["name"], mode) for run, mode in pairs],
+            pool.map(lambda rm: timed(conflict_report, rm[0]["blco"], rm[1]),
+                     pairs)))
+    say(f"[analysis] {len(pairs)} conflict reports in "
+        f"{time.perf_counter() - t_reports:.2f} s, one thread each")
     took = {}
     for run in runs:
         cache = run["plan"].resident.cache
         for mode, d, _, _ in run["modes"]:
-            t0 = time.perf_counter()
-            report = conflict_report(run["blco"], mode)
-            secs = time.perf_counter() - t0
+            report, secs = reports[(run["name"], mode)]
             if report["reservation"] != cache.reservation:
                 raise AssertionError(f"[analysis] {run['name']} mode {mode}:"
                                      f" the report's reservation "
@@ -2495,7 +2528,8 @@ def conflict_check(runs) -> dict:
                                 for k in KERNELS})
             pad = sum(l["padding_segments"] for l in report["launches"])
             say(f"[analysis] {run['name']} mode {mode} (I={d}): report "
-                f"{secs:.2f} s, tile {report['tile']}, reservation "
+                f"{secs:.2f} s (its thread), tile {report['tile']}, "
+                f"reservation "
                 f"{report['reservation']} x {len(report['launches'])} "
                 f"launches, segments {report['total_segments']} + padding "
                 f"segments {pad}, max writers per row "
@@ -2809,6 +2843,13 @@ def decode_timing(model, cfg, dev, prompts, n_new) -> dict:
             tok.cpu()
             steps.append(start.elapsed_time(stop))
         split = profile_decode_step(model, cache, tok, plen + n_new - 1)
+        pos = plen + n_new - 1
+        cal, _ = measured_step(
+            lambda m, c, t: m.decode_step(c, t, pos), (model, cache, tok),
+            dev)
+        CALIBRATION["decode"] = dict(
+            cal, cfg=cfg, step_ms=statistics.median(steps), pos=pos,
+            cache=(b, plen + n_new), tok=(tuple(tok.shape), tok.dtype))
     weights = [p for p in model.parameters() if p.dim() == 2]
     cast_ms = event_ms(lambda: [w.to(torch.bfloat16) for w in weights])
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
@@ -3230,6 +3271,15 @@ def full_depth_steps(dev) -> None:
     say(f"[train] {tag}: one more step in its parts, device ms by CUDA "
         f"events (host issue ms): " + "; ".join(
             f"{p} {d:.3f} ({h:.3f})" for p, (d, h) in parts.items()))
+    batch = put_batch(data.batch_at(TRAIN_STEPS + 1), dev)
+    cal, (state, met) = measured_step(step_fn, (state, batch), dev)
+    CALIBRATION["train"] = dict(
+        cal, cfg=cfg, opt_cfg=opt_cfg, step_ms=med_dev,
+        batch={k: (tuple(v.shape), v.dtype) for k, v in batch.items()})
+    say(f"[train] {tag}: one more step for [dryrun]'s calibration: "
+        f"{cal['flops']:,} flops (FlopCounterMode), its peak "
+        f"{cal['peak']:,} B (max_memory_allocated less the "
+        f"{cal['base'] - cal['held']:,} B held outside its arguments)")
     embed_grads(model, cfg, put_batch(data.batch_at(0), dev), tag)
     del state, model, new, met, batch, weights
     say(f"[train] {tag}: peak max_memory_allocated {peak:,} B, "
@@ -4634,6 +4684,198 @@ def mesh_phase(dev) -> None:
     say(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# -------------------------------------------------------------- [dryrun]
+# the dry run (launch/dryrun.py): three cells of the matrix, each its own
+# process (a fake process group of 256 or 512 ranks, fake tensors on the
+# card), then the calibration: the steps [train] and [serve] ran, traced
+# on fake tensors here against their real runs
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_CELLS = (("minicpm-2b", "train_4k", "single", ()),
+                ("deepseek-v2-236b", "decode_32k", "single", ()),
+                ("mamba2-370m", "long_500k", "multi", ("--skip-cost-model",)))
+DRYRUN_TIMEOUT = 600
+# the traced peak against the real step's max_memory_allocated, relative
+PEAK_TOL = 0.10
+# what [train] and [serve] measured of one real step each, for [dryrun]
+CALIBRATION: dict = {}
+
+
+def measured_step(fn, args, dev) -> tuple[dict, object]:
+    """One real step ``fn(*args)`` on the card under ``FlopCounterMode``:
+    its flops, and its peak as the tracer counts it — the rise of
+    ``max_memory_allocated`` over the step plus the bytes its arguments
+    hold (each storage rounded up to the allocator's 512 B, as
+    ``MemTracker`` rounds).  Returns (record, the step's output)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    held = sum(-(-b // 512) * 512 for _, b in
+               dryrun._storages(dryrun._leaves(args)).values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fc = FlopCounterMode(display=False)
+    with fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"flops": int(fc.get_total_flops()), "peak": peak - base + held,
+            "held": held, "base": base}, out
+
+
+def stop_all(procs) -> None:
+    """Kill whichever of ``procs`` still runs, and reap it."""
+    for *_, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_cells() -> list:
+    """Start the three cells as ``python -m repro_torch.launch.dryrun``
+    processes at once; returns them with their outputs' paths.  They are
+    host work (fake tensors) and run beside the phases that follow until
+    ``[dryrun]`` reads them; whatever still runs when the smoke exits is
+    killed."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    procs = []
+    for arch, shape, mesh, extra in DRYRUN_CELLS:
+        out = os.path.join(DRYRUN_DIR, f"{arch}.{shape}.{mesh}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", out, *extra]
+        # stderr to a file: nobody reads a pipe until [dryrun]
+        with open(out + ".err", "w") as err:
+            procs.append(((arch, shape, mesh), out, time.time(),
+                          subprocess.Popen(cmd, env=env,
+                                           stdout=subprocess.DEVNULL,
+                                           stderr=err)))
+    atexit.register(stop_all, procs)
+    return procs
+
+
+def dryrun_results(procs, smi) -> None:
+    """Wait for each cell; it must end ``ok``.  Prints its roofline terms,
+    dominant term, peak per rank, useful flops ratio and seconds."""
+    try:
+        for cell, out, t0, proc in procs:
+            try:
+                proc.wait(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[dryrun] {cell} ran past "
+                                     f"{DRYRUN_TIMEOUT} s")
+            rec = json.load(open(out)) if os.path.isfile(out) else {}
+            if proc.returncode != 0 or rec.get("status") != "ok":
+                err = open(out + ".err").read()
+                raise AssertionError(
+                    f"[dryrun] {cell}: rc {proc.returncode}, status "
+                    f"{rec.get('status')}: {rec.get('traceback', '')}"
+                    f"{err[-3000:]}")
+            rf = rec["roofline"]
+            coll = rec["rolled_analysis"]["collectives"]["counts"]
+            say(f"[dryrun] {' '.join(cell)} on {rec['chips']} fake ranks: "
+                f"compute {rf['compute_s']:.6f} s, memory "
+                f"{rf['memory_s']:.6f} s, collective {rf['collective_s']:.6f}"
+                f" s per rank, dominant {rf['dominant']}, step lower bound "
+                f"{rf['step_time_s']:.6f} s; {rf['flops_per_device']:,} "
+                f"flops, {rf['hbm_bytes_per_device']:,} B, "
+                f"{rf['wire_bytes_per_device']:,} wire B; collectives "
+                f"{coll}; peak per rank {rec['hbm_per_device_bytes']:,} B; "
+                f"useful flops ratio {rec['useful_flops_ratio']:.6f}; "
+                f"{rec['rolled_analysis']['ops_traced']:,} ops traced in "
+                f"{rec['trace_s']:.1f} s, the process "
+                f"{os.path.getmtime(out) - t0:.1f} s to its record; "
+                f"predicted from the "
+                f"H100's data-sheet rates, {smi}")
+    finally:
+        stop_all(procs)
+
+
+def calibrate(kind, trace_of, dev, smi) -> None:
+    """The step ``[train]`` or ``[serve]`` ran, traced on fake tensors:
+    its flops equal to the real step's, its peak within ``PEAK_TOL`` of
+    the real one, the real step's time at least the roofline's bound."""
+    from repro_torch.launch import roofline
+    cal = CALIBRATION[kind]
+    t0 = time.perf_counter()
+    tr = trace_of(cal)
+    trace_s = time.perf_counter() - t0
+    roof = roofline.roofline_terms(tr["flops"], tr["bytes"], 0.0)
+    rel = abs(tr["peak_bytes"] - cal["peak"]) / cal["peak"]
+    say(f"[dryrun] calibration, {kind} ({cal['cfg'].name}): flops traced "
+        f"{tr['flops']:,}, real {cal['flops']:,}; peak traced "
+        f"{tr['peak_bytes']:,} B (arguments {tr['argument_bytes']:,}), "
+        f"real {cal['peak']:,} B (arguments {cal['held']:,}), "
+        f"{rel:.4f} apart; step real {cal['step_ms']:.3f} ms (CUDA events, "
+        f"median), roofline bound {roof.step_time_s * 1e3:.3f} ms "
+        f"({roof.dominant}: {tr['bytes']:,} B over the 3.35 TB/s data sheet "
+        f"rate, {tr['ops']:,} ops); traced in {trace_s:.1f} s; {smi}")
+    if tr["flops"] != cal["flops"]:
+        raise AssertionError(f"[dryrun] {kind}: traced flops {tr['flops']} "
+                             f"differ from the real step's {cal['flops']}")
+    if rel > PEAK_TOL:
+        raise AssertionError(f"[dryrun] {kind}: traced peak "
+                             f"{tr['peak_bytes']} B is {rel:.4f} from the "
+                             f"real step's {cal['peak']} B")
+    if cal["step_ms"] < roof.step_time_s * 1e3:
+        raise AssertionError(f"[dryrun] {kind}: the real step "
+                             f"({cal['step_ms']:.3f} ms) beats the roofline's"
+                             f" bound ({roof.step_time_s * 1e3:.3f} ms)")
+
+
+def fake_train_trace(cal, dev) -> dict:
+    """[train]'s in-place step on fake tensors of the same shapes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    cfg, opt_cfg = cal["cfg"], cal["opt_cfg"]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = init_params(cfg, device=dev)
+        state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+        batch = {k: torch.empty(shape, dtype=dt, device=dev)
+                 for k, (shape, dt) in cal["batch"].items()}
+        return dryrun.trace_step(
+            steps.make_train_step(cfg, opt_cfg, donate=True),
+            (state, batch), device=dev)
+
+
+def fake_decode_trace(cal, dev) -> dict:
+    """[serve]'s decode step on fake tensors of the same shapes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_params
+    cfg, pos = cal["cfg"], cal["pos"]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = init_params(cfg, device=dev)
+        cache = model.init_cache(*cal["cache"])
+        shape, dt = cal["tok"]
+        tok = torch.empty(shape, dtype=dt, device=dev)
+        return dryrun.trace_step(
+            lambda m, c, t: m.decode_step(c, t, pos), (model, cache, tok),
+            device=dev)
+
+
+def dryrun_phase(procs, dev, smi) -> None:
+    """The ``[dryrun]`` phase: the calibration traces [train]'s and
+    [serve]'s steps here, then the three cells that ``dryrun_cells``
+    started before ``[baselines]`` are read."""
+    t_phase = time.perf_counter()
+    try:
+        calibrate("train", lambda c: fake_train_trace(c, dev), dev, smi)
+        calibrate("decode", lambda c: fake_decode_trace(c, dev), dev, smi)
+    except BaseException:
+        stop_all(procs)
+        raise
+    dryrun_results(procs, smi)
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    say(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def overhead_phase(run) -> None:
     """The in-memory call (mode 0) with tracing and the ledger both on
     against both off, in turns (off, on, on, off): the mean of each
@@ -4844,6 +5086,10 @@ def main() -> int:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
     torch.cuda.empty_cache()        # the plain path's temporaries
+    # the uniform stream's host build runs beside the next phases
+    uniform_pool = ThreadPoolExecutor(max_workers=1)
+    uniform_built = uniform_pool.submit(timed, uniform_blco)
+    uniform_pool.shutdown(wait=False)
     reset_launch_counts()
     for run in runs:
         phases_path(run)
@@ -4889,7 +5135,8 @@ def main() -> int:
         launches[v] += disk_launches[v]
 
     rows = timing_phase(runs)
-    uniform_timing(dev)
+    uniform_timing(uniform_built, dev)
+    del uniform_built
     phases_timing(runs, rows)
     rates = h2d_rates(dev)
     stream_timing(runs, rates, dev)
@@ -4897,6 +5144,8 @@ def main() -> int:
     disk_timing(runs, dev)
     say(f"[disk] timing {time.perf_counter() - t_disk:.1f} s")
 
+    # the dry run's cells: host processes, read in [dryrun]
+    dryrun_procs = dryrun_cells()
     t_phase = time.perf_counter()
     baselines_phase(runs, dev)
     say(f"[baselines] {time.perf_counter() - t_phase:.1f} s")
@@ -4974,6 +5223,12 @@ def main() -> int:
     if any(launch_counts.values()):
         raise AssertionError(f"[mesh] launched {dict(launch_counts)}; the "
                              f"mesh substrate runs no kernel of this port")
+    reset_launch_counts()
+    dryrun_phase(dryrun_procs, dev, smi)
+    say(f"[dryrun] kernel launches of the phase: {dict(launch_counts)}")
+    if any(launch_counts.values()):
+        raise AssertionError(f"[dryrun] launched {dict(launch_counts)}; the "
+                             f"dry run runs no kernel of this port")
     for run in runs:
         path = run["disk_plan"].stored.path
         run["disk_plan"].close()
