@@ -220,9 +220,20 @@ Phases, each of which exits non-zero when it fails:
    5e-3 of the unsharded step's; (5) ``python -m torch.distributed.run
    --nproc-per-node 8 -m repro_torch.launch.train --arch dbrx-132b
    --reduced --mesh test --steps 3`` (eight gloo ranks on the card): exit
-   0, finite losses, every rank's final state digest equal; each part's
-   seconds, each rank's peak memory and the step ms by CUDA events; no
-   kernel of K1-K5 launched;
+   0, finite losses, every rank's final state digest equal; (6) tensor
+   parallelism over ``model`` (``dist/tensor_parallel.py``), in a process
+   of its own (``--tp-part``) started before NELL-2's host generation,
+   which the first upload waits for: minicpm-2b at full width over 2
+   layers on gloo (1, 2) (the KV-heads layout and cache) and (1, 8)
+   (query rows for prefill and train, the head_dim cache for decode)
+   meshes, ``--mesh-worker tp RANK``, each rank's prefill, 8 decode steps
+   (bf16) and one in-place train step (f32, int8 v; eight whole train
+   states share the card, so the ranks take turns at their updates) at
+   (1, 4096) against the same steps on an NCCL world-1 mesh: logits within 2e-2, loss and grad norm within 1e-5,
+   greedy tokens the same on every rank, the split leaves' bytes 1/m per
+   rank, step ms by CUDA events and the share of it in collectives; each
+   part's seconds, each rank's peak memory and the step ms by CUDA
+   events; no kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -235,8 +246,9 @@ no result.
 """
 from __future__ import annotations
 
-import itertools
 import atexit
+import contextlib
+import itertools
 import json
 import math
 import os
@@ -616,8 +628,10 @@ def timed(fn, *args, **kw):
     return fn(*args, **kw), time.perf_counter() - t0
 
 
-def run_tensor(name, dims, nnz, dev) -> dict:
-    """One tensor through the main path; returns what the timing needs."""
+def run_tensor(name, dims, nnz, dev, before_upload=None) -> dict:
+    """One tensor through the main path; returns what the timing needs.
+    ``before_upload()`` runs (if given) once the host build is done,
+    before the first allocation on the card."""
     import torch
     from repro_torch.core import (build_blco, choose_resolution, cp_als_init,
                                   cp_als_step, init_factors, random_tensor,
@@ -651,6 +665,8 @@ def run_tensor(name, dims, nnz, dev) -> dict:
         f"fields {b.re.field_bits} shifts {b.re.field_shift} blocks "
         f"{len(b.blocks)} launches {len(b.launches)}")
 
+    if before_upload is not None:
+        before_upload()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     plan = plan_for(b, torch.cuda.mem_get_info()[0], rank=RANK,
@@ -4196,16 +4212,19 @@ def mesh_world1(mesh, dev) -> None:
     del tr, want_params
 
 
-def mesh_spawn(part: str, cfg: dict, env=None, meanwhile=None) -> list:
-    """Two worker processes of ``part`` on the card (gloo world 2): writes
-    their config, calls ``meanwhile(procs, deadline)`` while they run (if
-    given), waits for both, prints their logs, returns their reports."""
-    with open(os.path.join(MESH_DIR, f"{part}.json"), "w") as f:
+def mesh_spawn(part: str, cfg: dict, env=None, meanwhile=None,
+               n: int = 2) -> list:
+    """``n`` worker processes of ``part`` on the card (gloo world ``n``,
+    two by default): writes their config, calls ``meanwhile(procs,
+    deadline)`` while they run (if given), waits for all, prints their
+    logs, returns their reports.  Their files are under ``part_dir``'s."""
+    root = part_dir(part)
+    with open(os.path.join(root, f"{part}.json"), "w") as f:
         json.dump(cfg, f)
-    logs = [os.path.join(MESH_DIR, f"{part}{r}.log") for r in range(2)]
+    logs = [os.path.join(root, f"{part}{r}.log") for r in range(n)]
     procs = []
     try:
-        for r in range(2):
+        for r in range(n):
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
@@ -4227,11 +4246,11 @@ def mesh_spawn(part: str, cfg: dict, env=None, meanwhile=None) -> list:
                     for line in f.read().splitlines():
                         say(line)
     codes = [p.returncode for p in procs]
-    if codes != [0, 0]:
+    if codes != [0] * n:
         raise AssertionError(f"[mesh] {part} workers exited {codes}")
     reports = []
-    for r in range(2):
-        with open(os.path.join(MESH_DIR, f"{part}_report{r}.json")) as f:
+    for r in range(n):
+        with open(os.path.join(root, f"{part}_report{r}.json")) as f:
             reports.append(json.load(f))
         if any(reports[-1]["launches"].values()):
             raise AssertionError(f"[mesh] {part} rank {r} launched "
@@ -4526,9 +4545,15 @@ def mesh_launcher(proc, t0) -> None:
         raise AssertionError(f"[mesh] part 5 losses {losses}")
 
 
+def part_dir(part: str) -> str:
+    """Where a worker part's files live: part 6's under ``TP_DIR``."""
+    return TP_DIR if part == "tp" else MESH_DIR
+
+
 def mesh_worker(part: str, rank: int) -> int:
-    """One gloo rank of part 2 (``zero``) or part 3 (``ep``) on the card;
-    writes its report and returns 0 when every check held."""
+    """One gloo rank of part 2 (``zero``), part 3 (``ep``) or part 6
+    (``tp``, on the mesh its config names) on the card; writes its report
+    and returns 0 when every check held."""
     import torch
     import torch.distributed as dist
     if not torch.cuda.is_available():
@@ -4540,26 +4565,30 @@ def mesh_worker(part: str, rank: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    with open(os.path.join(MESH_DIR, f"{part}.json")) as f:
+    root = part_dir(part)
+    with open(os.path.join(root, f"{part}.json")) as f:
         cfg_in = json.load(f)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{os.path.join(MESH_DIR, part + '_s')}",
-        rank=rank, world_size=2)
+    shape = tuple(cfg_in.get("mesh", (2, 1) if part == "zero" else (1, 2)))
+    store = os.path.join(root, cfg_in.get("store", part + "_s"))
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=math.prod(shape))
     pre = f"[mesh] {part} rank {rank}:"
     report = {}
     try:
-        mesh = make_mesh((2, 1) if part == "zero" else (1, 2))
+        mesh = make_mesh(shape)
         set_mesh(mesh)
         if part == "zero":
             report = zero_worker(cfg_in, mesh, dev, pre)
-        else:
+        elif part == "ep":
             report = ep_worker(cfg_in, mesh, dev, pre)
+        else:
+            report = tp_worker(cfg_in, mesh, dev, pre)
         set_mesh(None)
     finally:
         dist.destroy_process_group()
     report["launches"] = dict(launch_counts)
     report["peak"] = torch.cuda.max_memory_allocated()
-    with open(os.path.join(MESH_DIR, f"{part}_report{rank}.json"), "w") as f:
+    with open(os.path.join(root, f"{part}_report{rank}.json"), "w") as f:
         json.dump(report, f)
     return 0
 
@@ -4640,10 +4669,382 @@ def ep_worker(cfg_in, mesh, dev, pre) -> dict:
     return {"experts": [lo, lo + el], "step_ms": ms}
 
 
-def mesh_phase(dev) -> None:
-    """The ``[mesh]`` phase: parts 1-5 (see the module's docstring); the
+# part 6: tensor parallelism over model (repro_torch.dist.tensor_parallel)
+# at minicpm-2b's full width, its depth cut to TP_LAYERS: gloo ranks on
+# the one card at (1, 2) (36 KV heads over 2: the "heads" layout and
+# cache) and (1, 8) ("rows" for prefill and train, the head_dim cache for
+# decode); each rank's prefill, TP_DECODE decode steps (bf16) and one
+# in-place ZeRO train step (f32, int8 v) held against the same steps on
+# the NCCL world-1 mesh from the same draws
+TP_ARCH = "minicpm-2b"
+TP_LAYERS = 2
+TP_MESHES = ((1, 2), (1, 8))
+TP_SEQ = (1, 4096)          # the prompt and the train batch
+# part 6 runs as its own process (``chip_smoke.py --tp-part``) beside
+# NELL-2's host generation, files under TP_DIR; the main path's first
+# upload waits for it
+TP_DIR = os.path.join(ROOT, "build", "tp")
+TP_TIMEOUT = 600
+TP_DECODE = 8
+TP_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+class CollectiveClock:
+    """Wall seconds inside ``torch.distributed``'s ``all_reduce`` and
+    ``all_gather`` while entered, each call between two synchronizes (gloo
+    stages a CUDA tensor through the host and returns when it is done)."""
+
+    def __init__(self):
+        self.s, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self.saved = dist.all_reduce, dist.all_gather
+
+        def clocked(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return run
+        dist.all_reduce, dist.all_gather = map(clocked, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce, dist.all_gather = self.saved
+
+
+def tp_clocked(fn):
+    """``fn()`` under a ``CollectiveClock``: (its result, its ms by CUDA
+    events, its collectives' ms, their count)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with CollectiveClock() as clock:
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+    return out, start.elapsed_time(stop), clock.s * 1e3, clock.calls
+
+
+@contextlib.contextmanager
+def update_turns(mesh):
+    """Ranks that share the card take turns at their AdamW updates, each
+    freeing its temporaries before the next begins: on a data axis of 1
+    the state is whole on every model rank and its update runs no
+    collective, so the order changes no value, only how many ranks'
+    temporaries the card holds at once.  Yields a dict that gets
+    ``"free"``: the card's free bytes as this rank's update ends, its
+    temporaries still reserved (the card's margin at that turn)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import adamw
+    seen = {}
+    if mesh.size(0) != 1 or mesh.size(1) == 1:
+        yield seen
+        return
+    group, rank = mesh.get_group("model"), mesh.get_local_rank("model")
+    update = adamw.apply_updates
+
+    def in_turn(*args, **kw):
+        out = None
+        for turn in range(mesh.size(1)):
+            if turn == rank:
+                out = update(*args, **kw)
+                torch.cuda.synchronize()
+                seen["free"] = torch.cuda.mem_get_info()[0]
+                torch.cuda.empty_cache()
+            dist.barrier(group=group)
+        return out
+    adamw.apply_updates = in_turn
+    try:
+        yield seen
+    finally:
+        adamw.apply_updates = update
+
+
+def tp_run(cfg, mesh, dev) -> dict:
+    """Part 6's steps of ``cfg``'s model drawn from ``SEED + 8`` on
+    ``mesh`` (installed): the prefill's next-token logits (warm, then
+    timed), ``TP_DECODE`` teacher-forced decode steps from position 0 in a
+    bf16 cache of ``TP_SEQ`` positions, their greedy tokens, and one
+    in-place train step in f32 with the int8 second moment (loss, grad
+    norm); with the bytes of the
+    leaves ``tp_blocks`` splits, held and whole, and each step's ms and
+    collectives' ms."""
+    import dataclasses
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.model import family
+    from repro_torch.optim import adamw
+    b, s = TP_SEQ
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s))).to(dev)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(SEED + 8))
+    named = dict(model.named_parameters())
+    split = shd.tp_blocks(named, cfg, mesh)
+    params = steps.shard_serve_params(model, mesh)
+    out = {"held": sum(p.to_local().numel() * p.element_size()
+                       for n, p in params.named_parameters() if split[n]
+                       is not None),
+           "whole": sum(named[n].numel() * named[n].element_size()
+                        for n in named if split[n] is not None),
+           "split": sum(d is not None for d in split.values())}
+    prefill = steps.make_prefill_step(cfg, mesh=mesh)
+    prefill(params, {"tokens": toks})
+    logits, ms, coll, calls = tp_clocked(
+        lambda: prefill(params, {"tokens": toks}))
+    out["prefill"] = logits.float().cpu().numpy()
+    out["prefill_ms"], out["prefill_coll_ms"] = ms, coll
+    cache = family(cfg).init_cache(cfg, b, s, dtype=torch.bfloat16,
+                                   device=dev, mesh=mesh)
+    out["cache_k"] = list(cache["k"].shape)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    ms_all, coll_all = [], []
+    for t in range(TP_DECODE):
+        (logits, cache), ms, coll, _ = tp_clocked(
+            lambda: serve(params, cache, toks[:, t:t + 1], t))
+        out[f"step{t}"] = logits.float().cpu().numpy()
+        ms_all.append(ms)
+        coll_all.append(coll)
+    out["greedy"] = np.stack([out[f"step{t}"].argmax(-1)
+                              for t in range(TP_DECODE)])
+    out["decode_ms"] = float(np.median(ms_all[1:]))
+    out["decode_coll_ms"] = float(np.median(coll_all[1:]))
+    del cache, params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # the int8 second moment, as part 2's: eight ranks on one card each
+    # hold the whole state (the data axis is 1) beside their gradients
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **MESH_ZERO_OPT)
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    state = steps.shard_state(state, mesh,
+                              steps.train_state_shardings(mesh, state))
+    del model, named
+    step = steps.make_train_step(cfg32, opt_cfg, donate=True, mesh=mesh)
+    with update_turns(mesh) as turns:
+        (state, met), ms, coll, _ = tp_clocked(
+            lambda: step(state, {"tokens": toks, "labels": labels}))
+    out["free_at_update"] = turns.get("free")
+    out["loss"], out["grad_norm"] = float(met["loss"]), float(
+        met["grad_norm"])
+    out["train_ms"], out["train_coll_ms"] = ms, coll
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(cfg_in, mesh, dev, pre) -> dict:
+    """Part 6's rank: ``tp_run`` on its mesh; its arrays written for the
+    parent, its numbers in its report."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = family_cfg(TP_ARCH, num_layers=cfg_in["layers"])
+    free, total = torch.cuda.mem_get_info()
+    say(f"{pre} {free:,} of {total:,} B free on the card at the start")
+    t0 = time.perf_counter()
+    out = tp_run(cfg, mesh, dev)
+    rank = mesh.get_local_rank("model")
+    arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
+    np.savez(os.path.join(TP_DIR, f"tp{mesh.size(1)}_r{rank}.npz"),
+             **arrays)
+    say(f"{pre} steps {time.perf_counter() - t0:.1f} s")
+    return {k: v for k, v in out.items() if k not in arrays}
+
+
+def mesh_tp(mesh, dev) -> None:
+    """Part 6: ``tp_run`` here on the NCCL world-1 mesh, then in gloo
+    workers on each of ``TP_MESHES`` (``--mesh-worker tp RANK``); each
+    rank's prefill and decode logits within ``TP_TOL["bfloat16"]`` of
+    world 1's (max |d| / max |ref|), its loss and grad norm within
+    ``TP_TOL["float32"]``, the greedy tokens bitwise the same on every
+    rank of a mesh, the split leaves' bytes per rank 1/m of theirs."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = family_cfg(TP_ARCH, num_layers=TP_LAYERS)
+    say(f"[mesh] part 6: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), its "
+        f"depth cut from {get_config(TP_ARCH).num_layers} to {TP_LAYERS} "
+        f"layers; (B, S) = {TP_SEQ}, {TP_DECODE} decode steps")
+    t0 = time.perf_counter()
+    want = tp_run(cfg, mesh, dev)
+    torch.cuda.empty_cache()
+    say(f"[mesh] part 6 world 1: prefill {want['prefill_ms']:.3f} ms, "
+        f"decode {want['decode_ms']:.3f} ms a step, train "
+        f"{want['train_ms']:.3f} ms (loss {want['loss']:.6f}, grad norm "
+        f"{want['grad_norm']:.6f}), peak {want['peak']:,} B; "
+        f"{time.perf_counter() - t0:.1f} s")
+    env = dict(os.environ)
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    bad = []
+    for shape in TP_MESHES:
+        m = shape[1]
+        free, total = torch.cuda.mem_get_info()
+        say(f"[mesh] part 6: {free:,} of {total:,} B free on the card before "
+            f"the {shape} workers")
+        t0 = time.perf_counter()
+        reports = mesh_spawn("tp", {"mesh": list(shape), "store": f"tp{m}_s",
+                                    "layers": TP_LAYERS}, env=env, n=m)
+        got = [dict(np.load(os.path.join(TP_DIR, f"tp{m}_r{r}.npz")))
+               for r in range(m)]
+        for r, (rep, arr) in enumerate(zip(reports, got)):
+            errs = {k: float(np.abs(arr[k] - want[k]).max()
+                             / np.abs(want[k]).max())
+                    for k in ["prefill"] + [f"step{t}"
+                                            for t in range(TP_DECODE)]}
+            worst = max(errs.values())
+            rel = {k: abs(rep[k] - want[k]) / abs(want[k])
+                   for k in ("loss", "grad_norm")}
+            share = {k: rep[f"{k}_coll_ms"] / rep[f"{k}_ms"]
+                     for k in ("prefill", "decode", "train")}
+            say(f"[mesh] part 6 {shape} rank {r}: split leaves "
+                f"{rep['held']:,} B held against whole / m "
+                f"{rep['whole'] / m:,.0f} B ({rep['split']} leaves); cache "
+                f"k block {rep['cache_k']}; logits worst rel {worst:.3e} "
+                f"(prefill {errs['prefill']:.3e}); loss {rep['loss']:.6f} "
+                f"(rel {rel['loss']:.3e}), grad norm rel "
+                f"{rel['grad_norm']:.3e}; ms by CUDA events: prefill "
+                f"{rep['prefill_ms']:.3f}, decode {rep['decode_ms']:.3f} a "
+                f"step, train {rep['train_ms']:.3f} (the updates in turns); "
+                f"share in collectives "
+                + ", ".join(f"{k} {v:.3f}" for k, v in share.items())
+                + f"; peak {rep['peak']:,} B; the card's free bytes as its "
+                f"update ended {rep['free_at_update']:,} B")
+            if worst > TP_TOL["bfloat16"] or max(rel.values()) > \
+                    TP_TOL["float32"]:
+                bad.append((shape, r, worst, rel))
+            if rep["held"] * m != rep["whole"]:
+                bad.append((shape, r, "bytes", rep["held"], rep["whole"]))
+            for k in ["prefill", "greedy"] + [f"step{t}"
+                                              for t in range(TP_DECODE)]:
+                if not np.array_equal(arr[k], got[0][k]):
+                    bad.append((shape, r, k, "differs from rank 0"))
+        say(f"[mesh] part 6 {shape}: greedy tokens "
+            f"{got[0]['greedy'].ravel().tolist()} on every rank (world 1: "
+            f"{want['greedy'].ravel().tolist()}); the card's least free "
+            f"bytes as an update ended "
+            f"{min(r['free_at_update'] for r in reports):,} B; "
+            f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"[mesh] part 6: {bad}")
+
+
+def tp_part() -> int:
+    """``chip_smoke.py --tp-part``: part 6 in a process of its own (NCCL
+    world 1 on a (1, 1) mesh here, the gloo workers below it), its lines
+    to stdout; writes ``TP_DIR/done.json`` with its verdict."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.dist import make_mesh, set_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)        # NELL-2's generation has the host
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    verdict = {"ok": False}
+    os.makedirs(TP_DIR, exist_ok=True)
+    store = os.path.join(TP_DIR, "store1")
+    if os.path.exists(store):
+        os.unlink(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1))
+        set_mesh(mesh)
+        mesh_tp(mesh, dev)
+        verdict["ok"] = True
+    except Exception as exc:                      # reported by [mesh]
+        import traceback
+        traceback.print_exc(file=sys.stdout)
+        verdict["error"] = repr(exc)
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+        verdict["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(TP_DIR, "done.json"), "w") as f:
+            json.dump(verdict, f)
+    return 0 if verdict["ok"] else 1
+
+
+def tp_part_start():
+    """Start part 6 (``--tp-part``) in its own process session, its output
+    to ``TP_DIR/part6.log``; killed with its workers at exit if still
+    running."""
+    import signal
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    env = dict(os.environ)
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with open(os.path.join(TP_DIR, "part6.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--tp-part"], stdout=log,
+                                stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return {"proc": proc, "t0": time.perf_counter(), "stop": stop}
+
+
+def tp_part_wait(part) -> None:
+    """Wait for part 6's process (at most ``TP_TIMEOUT`` s from its
+    start): the card is its until then."""
+    if part.get("waited") is not None:
+        return
+    t0 = time.perf_counter()
+    try:
+        part["proc"].wait(timeout=max(1.0, TP_TIMEOUT - (
+            time.perf_counter() - part["t0"])))
+    except subprocess.TimeoutExpired:
+        part["stop"]()
+    part["waited"] = time.perf_counter() - t0
+    say(f"[mesh] part 6 ran beside NELL-2's host generation: "
+        f"{time.perf_counter() - part['t0']:.1f} s, the main path waited "
+        f"{part['waited']:.1f} s for it")
+
+
+def tp_part_report(part) -> None:
+    """``[mesh]`` part 6's lines, from its process; raises unless it
+    passed."""
+    tp_part_wait(part)
+    with open(os.path.join(TP_DIR, "part6.log")) as f:
+        for line in f.read().splitlines():
+            say(line)
+    path = os.path.join(TP_DIR, "done.json")
+    verdict = json.load(open(path)) if os.path.isfile(path) else {}
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    if not verdict.get("ok"):
+        raise AssertionError(f"[mesh] part 6 failed: {verdict}")
+    say(f"[mesh] part 6: {verdict['seconds']:.1f} s in its process")
+
+
+def mesh_phase(dev, tp) -> None:
+    """The ``[mesh]`` phase: parts 1-6 (see the module's docstring); the
     launcher (part 5) runs beside parts 1 and 3, and part 2's workers
-    start once it has ended (they need most of the card)."""
+    start once it has ended (they need most of the card).  Part 6 ran in
+    its own process ``tp`` (``tp_part_start``) beside NELL-2's host
+    generation; its lines are printed here."""
     import torch
     import torch.distributed as dist
     from repro_torch.dist import make_mesh, set_mesh
@@ -4668,7 +5069,8 @@ def mesh_phase(dev) -> None:
                                ("3", lambda: mesh_ep(dev)),
                                ("5", lambda: mesh_launcher(launcher,
                                                            t_phase)),
-                               ("2 and 4", lambda: mesh_zero(mesh, dev))):
+                               ("2 and 4", lambda: mesh_zero(mesh, dev)),
+                               ("6", lambda: tp_part_report(tp))):
                 t0 = time.perf_counter()
                 part()
                 torch.cuda.empty_cache()
@@ -5050,6 +5452,8 @@ def main() -> int:
         return sharded_worker(int(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-part"]:
+        return tp_part()
     # the phases path allocates and frees tens of GB of (T, R) tensors of
     # several sizes per call; growable segments keep the cache from
     # fragmenting (read when the allocator starts, before any allocation)
@@ -5077,8 +5481,13 @@ def main() -> int:
     kernel_phase(dev)
     phase_kernels_phase(dev)
 
+    # [mesh] part 6 in its own process, beside NELL-2's host generation;
+    # the first upload waits for it
+    torch.cuda.empty_cache()
+    tp = tp_part_start()
     reset_launch_counts()
-    runs = [run_tensor(name, dims, nnz, dev)
+    runs = [run_tensor(name, dims, nnz, dev, before_upload=lambda:
+                       tp_part_wait(tp))
             for name, (dims, nnz) in TENSORS.items()]
     launches = dict(launch_counts)
     say(f"[main] kernel launches on the main path: {launches}")
@@ -5218,7 +5627,7 @@ def main() -> int:
         raise AssertionError(f"[families] launched {dict(launch_counts)}; "
                              f"these families run no kernel of this port")
     reset_launch_counts()
-    mesh_phase(dev)
+    mesh_phase(dev, tp)
     say(f"[mesh] kernel launches of the phase: {dict(launch_counts)}")
     if any(launch_counts.values()):
         raise AssertionError(f"[mesh] launched {dict(launch_counts)}; the "

@@ -133,6 +133,22 @@ def params_from_jax(cfg, tree, *, device=DEFAULT_DEVICE):
     return model
 
 
+
+def tp_blocks_from_jax(cfg, tree, mesh) -> dict:
+    """The reference's parameters (as ``params_from_jax`` reads them) cut
+    to one rank's tensor-parallel blocks: ``{state-dict name: CPU
+    tensor}``, this rank's ``chunk(m, dim)`` where ``sharding.tp_blocks``
+    splits a leaf, else the whole leaf.  ``mesh`` needs the ``model``
+    axis's extent and this rank's coordinate on it (``get_local_rank``);
+    no process group is asked."""
+    from repro_torch.dist.sharding import tp_blocks
+    from repro_torch.dist.tensor_parallel import tp_rank, tp_size
+    state = _unstacked(tree)
+    dims = tp_blocks(state, cfg, mesh)
+    m, r = tp_size(mesh), tp_rank(mesh)
+    return {n: t if dims[n] is None else t.chunk(m, dim=dims[n])[r].clone()
+            for n, t in state.items()}
+
 def _host(t):
     """A tensor as a numpy array on the host; a meta tensor stays as it
     is (its shape is all a ``like`` tree needs)."""

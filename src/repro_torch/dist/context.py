@@ -7,12 +7,17 @@ the ``model`` axis, and the model's anchors (``constrain``) name each
 activation's layout by logical axes — ``"dp"`` (all data-parallel/ZeRO
 axes: ``data``, or ``(pod, data)`` on multi-pod meshes) and ``"tp"`` (the
 ``model`` axis).  The reference hands each anchor to GSPMD as a sharding
-hint; the port runs per-rank code, in which every rank already holds its
-own block, so ``constrain`` returns its input: an exact no-op without a
-mesh, and with one it checks the anchor names one axis per dim, as the
-reference asserts.
+hint; the port runs per-rank code, so ``constrain`` returns its input:
+an exact no-op without a mesh, and with one it checks the anchor names
+one axis per dim, as the reference asserts.  The split happens in the
+module code instead: each rank computes with its blocks and calls the
+collectives of ``dist.tensor_parallel``, in the layout that ``tp_layout``
+(train and prefill attention) and ``tp_cache_layout`` (the decode cache)
+choose as the reference's anchors and ``cache_specs`` choose it.
 """
 from __future__ import annotations
+
+import math
 
 _MESH = None
 
@@ -59,3 +64,49 @@ def constrain(x, *axes):
     if _MESH is not None:
         assert len(axes) == x.ndim, (axes, x.shape)
     return x
+
+
+def tp_layout(cfg, mesh, seq: int) -> str:
+    """The attention's layout over ``model`` for ``seq`` query rows, the
+    reference's ``_attn_constrain`` decision: ``"heads"`` where the KV
+    heads divide the axis (``tensor_parallel.Plan.heads``), else
+    ``"rows"`` (each rank its block of query rows against the whole K
+    and V) where the rows do, else ``"whole"``.  ``"whole"`` too where
+    ``tensor_parallel.plan`` splits nothing."""
+    from .tensor_parallel import plan
+    tp = plan(cfg, mesh)
+    if tp is None:
+        return "whole"
+    if tp.heads:
+        return "heads"
+    return "rows" if seq % tp.size == 0 else "whole"
+
+
+def tp_cache_layout(cfg, mesh, *, batch: int, seq: int) -> str:
+    """The decode cache's block over ``model``, as the reference's
+    ``cache_specs`` splits a (L, B, S, KV, hd) cache of ``batch`` rows
+    (the global batch) and ``seq`` positions: ``tensor_parallel.Plan``'s
+    ``cache``, ``"heads"`` or ``"head_dim"``; where neither divides,
+    ``"whole"`` where the reference leaves ``model`` off the cache (the
+    data axes took the KV length, the batch not dividing them, or the
+    length does not divide ``model``); ``"whole"`` too where ``plan``
+    splits nothing.  The reference's third layout, the KV length over
+    ``model``, is not built: a cache that reaches it raises (ROADMAP item
+    13.7)."""
+    from .sharding import fsdp_axes
+    from .tensor_parallel import plan
+    tp = plan(cfg, mesh)
+    if tp is None:
+        return "whole"
+    if tp.cache != "length":
+        return tp.cache
+    m = tp.size
+    sizes = dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+    dps = math.prod(sizes[a] for a in fsdp_axes(mesh))
+    if (batch % dps != 0 and seq % dps == 0) or seq % m != 0:
+        return "whole"
+    raise ValueError(
+        f"{cfg.name}: neither its {cfg.num_kv_heads} KV heads nor its "
+        f"head_dim {cfg.head_dim} divide the model axis of {m}; the "
+        f"reference splits the decode cache's KV length there, a layout "
+        f"the port does not build yet (ROADMAP item 13.7)")

@@ -32,6 +32,7 @@ a tuple of names (``("pod", "data")``), as a ``PartitionSpec`` reads.
 from __future__ import annotations
 
 import math
+import re
 
 # Production axis extents (launch/mesh.py: 16x16 single pod, 2x16x16
 # multi-pod) — used for shape-only planning when no live mesh is given.
@@ -214,3 +215,48 @@ def gather(t):
             dist.all_gather(parts, local.contiguous(), group=group)
             local = torch.cat(parts, dim=p.dim)
     return local
+
+
+# the leaves a tensor-parallel rank splits, by state-dict name: (the
+# reference's anchor the split follows, the dim of this rank's block)
+_TP_LEAVES = (
+    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.w[qkv]\.w$"), 1),
+    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.w[qkv]\.b$"), 0),
+    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.wo\.w$"), 0),
+    ("mlp", re.compile(r"^dense_layers\.\d+\.mlp\.w[ig]\.w$"), 1),
+    ("mlp", re.compile(r"^dense_layers\.\d+\.mlp\.wo\.w$"), 0),
+    ("vocab", re.compile(r"^lm_head\.w$"), 1),
+    ("table", re.compile(r"^embed\.table$"), 0),
+)
+
+
+def tp_blocks(named: dict, cfg, mesh, *, mode: str = "serve") -> dict:
+    """``{state-dict name: dim}`` of the leaves a rank computes with as its
+    block over ``model`` (``dim`` the split one, the block
+    ``chunk(m, dim)[model rank]``), ``None`` for a leaf it computes with
+    whole.  Shape-only: ``mesh`` needs its axis names and extents.
+
+    * ``wq``, ``wk``, ``wv`` (and their biases) by columns, in KV-head
+      groups, and the attention's ``wo`` by rows, where the KV heads
+      divide the axis (the ``"heads"`` layout); in the ``"rows"`` layout
+      the four are whole;
+    * the MLP's ``wi`` and ``wg`` by columns and its ``wo`` by rows;
+    * ``lm_head`` by vocab columns; ``embed.table`` by vocab rows when
+      serving (a vocab-parallel lookup, and the tied head), whole in
+      training, where the lookup reads it whole and the tied head takes
+      its rows (``tensor_parallel.scatter``);
+    * everything else whole: the norms, ``frontend_proj``, the router and
+      the routed experts (which ``moe_apply_sharded`` splits itself), and
+      every leaf of a family outside ``tensor_parallel.TP_FAMILIES``."""
+    from .tensor_parallel import plan
+    tp = plan(cfg, mesh)
+    out = dict.fromkeys(named)
+    if tp is None:
+        return out
+    split = {"heads": tp.heads, "mlp": tp.mlp, "vocab": tp.vocab,
+             "table": mode == "serve" and tp.vocab}
+    for name in named:
+        for anchor, pattern, dim in _TP_LEAVES:
+            if split[anchor] and pattern.match(name):
+                out[name] = dim
+    return out

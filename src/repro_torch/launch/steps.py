@@ -20,7 +20,11 @@ whole), and ``make_train_step(mesh=...)`` is the port's counterpart of
 ``jax.jit(train_step, in_shardings=(S, None), out_shardings=(S, None))``.
 ``make_prefill_step(cfg, mesh=)`` and ``make_serve_step(cfg, mesh=)`` are
 the per-rank serving steps over parameters that ``shard_serve_params``
-laid out.
+laid out.  Where the ``model`` axis splits the config
+(``dist.tensor_parallel``), every step computes with this rank's blocks
+(``sharding.tp_blocks``): the train step cuts them from each gathered
+leaf and makes their gradients whole again, a serving rank holds them
+and gathers no weight, and the decode cache is the rank's block.
 
 The dry run's half: ``batch_specs`` and ``cache_specs`` give each cell's
 batch and decode cache as ``meta`` tensors beside the reference's specs
@@ -41,6 +45,7 @@ import torch.distributed as dist
 from repro_torch.core.distributed import axis_group
 from repro_torch.dist import context as dist_context
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import model as model_mod
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
@@ -128,11 +133,15 @@ def batch_specs(cfg, shape_name: str, mesh, *, device="meta"):
     return {"tokens": tok, "pos": pos}, {"tokens": tok_shard, "pos": ()}
 
 
-def _init_cache(cfg, b: int, s: int, device):
+def _init_cache(cfg, b: int, s: int, device, mesh=None, global_batch=None):
+    """The decode cache of ``b`` rows and ``s`` positions: the global one,
+    or with ``mesh`` this rank's block over ``model`` (of a global batch
+    of ``global_batch`` rows)."""
     fam = model_mod.family(cfg)
     if cfg.is_encdec:
         return fam.init_cache(cfg, b, s, ENC_LEN, device=device)
-    return fam.init_cache(cfg, b, s, device=device)
+    return fam.init_cache(cfg, b, s, device=device, mesh=mesh,
+                          global_batch=global_batch)
 
 
 def cache_specs(cfg, shape_name: str, mesh):
@@ -388,6 +397,28 @@ def data_rows(mesh, batch: dict) -> dict:
     return out
 
 
+def _with_blocks(model, tensors: dict, *, requires_grad: bool):
+    """A model of ``model``'s class and config holding ``tensors`` (by
+    state-dict name, taken as they are): a tensor of its parameter's
+    shape loaded as ``with_params`` loads it, a block set in place of the
+    parameter as a new ``Parameter``."""
+    named = _named(model)
+    placed, blocks = {}, {}
+    for n, t in tensors.items():
+        if tuple(t.shape) == tuple(named[n].shape):
+            placed[n] = t
+        else:
+            blocks[n] = t
+            placed[n] = torch.empty(named[n].shape, dtype=t.dtype,
+                                    device="meta")
+    new = transformer.with_params(model, placed)
+    for n, blk in blocks.items():
+        module, _, attr = n.rpartition(".")
+        setattr(new.get_submodule(module), attr,
+                torch.nn.Parameter(blk, requires_grad=requires_grad))
+    return new
+
+
 def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
     """The ZeRO train step, as per-rank code: gather each parameter whole
     (``sharding.gather``), run the loss on this rank's rows of the batch
@@ -396,7 +427,13 @@ def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
     parameters and moments, the global norm and the int8 scale over whole
     leaves (``LeafReduce``).  The metrics are the same on every rank: loss
     and nll averaged over the data axes, aux already averaged in the
-    MoE."""
+    MoE.
+
+    Where the ``model`` axis splits the config, each leaf that
+    ``tp_blocks`` splits is cut to this rank's block as soon as it is
+    gathered (the whole leaf dropped before the next one's gather), the
+    loss runs on the blocks, and each block's gradient is gathered whole
+    over ``model`` before the data axes' mean."""
     from torch.distributed.tensor import DTensor
     dp = dist_context._resolve(mesh, "dp")
     dp_group = axis_group(mesh, dp)[0] if dp is not None else None
@@ -405,20 +442,29 @@ def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
     def local(t):
         return t.to_local() if isinstance(t, DTensor) else t
 
+    tp = tpar.plan(cfg, mesh)
+
     def train_step(state, batch):
         if dist_context.get_mesh() is not mesh:
             raise ValueError("the sharded train step runs under its mesh: "
                              "repro_torch.dist.set_mesh(mesh) first")
         model = state["params"]
         named = dict(model.named_parameters())
-        whole = transformer.with_params(
-            model, {n: shd.gather(p) for n, p in named.items()})
+        split = shd.tp_blocks(named, cfg, mesh, mode="train")
+        held = {}
+        for n, p in named.items():
+            w = shd.gather(p)
+            held[n] = w if split[n] is None else tp.block(w, split[n]).clone()
+        whole = _with_blocks(model, held, requires_grad=True)
+        del held, w
         loss, metrics, grads = _loss_and_grads(fam, whole, cfg,
                                                data_rows(mesh, batch))
         blocks = {}
         for (n, p), g in zip(named.items(), grads):
             if g is None:
                 g = torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+            elif split[n] is not None:
+                g = tpar.all_gather(g, split[n], tp)
             if n_dp > 1:
                 dist.all_reduce(g, group=dp_group)
                 g.div_(n_dp)
@@ -455,11 +501,26 @@ def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
 _EXPERT = re.compile(r"(^|\.)moe\.w[igo]\.w$")
 
 
-def serve_layout(mesh, named: dict) -> dict:
+def serve_layout(mesh, named: dict, cfg) -> dict:
     """``{state-dict name: spec}`` of what a serving rank holds: the
     reference's serve-mode spec (``param_shardings(mode="serve")``), but a
     routed expert stack split on its expert dim over ``model`` (this
-    rank's E / tp experts, as ``moe_apply_sharded`` runs them)."""
+    rank's E / tp experts, as ``moe_apply_sharded`` runs them).
+
+    Where the ``model`` axis splits ``cfg`` the rank holds what it
+    computes with: ``tp_blocks``' blocks over ``model`` (the same bytes as
+    the reference's serve-mode block wherever both split a leaf over
+    ``model``) and every other leaf whole, replicated, so that no step
+    gathers a weight; the reference splits those over ``model`` or the
+    data axes and gathers them as the step needs them."""
+    if tpar.plan(cfg, mesh) is not None:
+        specs = {}
+        for n, d in shd.tp_blocks(named, cfg, mesh, mode="serve").items():
+            if _EXPERT.search(n):
+                d = 0
+            specs[n] = () if d is None else tuple(
+                "model" if i == d else None for i in range(named[n].dim()))
+        return specs
     specs = shd.param_shardings(mesh, named, mode="serve")
     if shd.axis_sizes(mesh).get("model", 1) > 1:
         for n in specs:
@@ -473,7 +534,7 @@ def shard_serve_params(model, mesh):
     blocks: each parameter a ``DTensor`` placed by ``serve_layout`` (no
     collective)."""
     named = _named(model)
-    layout = serve_layout(mesh, named)
+    layout = serve_layout(mesh, named, model.cfg)
     return transformer.with_params(model, {
         n: shd.distribute(p, mesh, layout[n]) for n, p in named.items()})
 
@@ -481,25 +542,23 @@ def shard_serve_params(model, mesh):
 def _serve_whole(params, mesh):
     """The model a serving rank runs: each parameter gathered whole
     (``sharding.gather``) but the routed experts on a ``model`` axis
-    above 1, which stay this rank's block (``serve_layout``)."""
+    above 1, which stay this rank's block (``serve_layout``).  Where the
+    ``model`` axis splits the config, each parameter is the rank's own
+    block or whole copy, and nothing is gathered."""
     from torch.distributed.tensor import DTensor
     if dist_context.get_mesh() is not mesh:
         raise ValueError("the per-rank serving steps run under their mesh: "
                          "repro_torch.dist.set_mesh(mesh) first")
+    held = tpar.plan(params.cfg, mesh) is not None
     split = shd.axis_sizes(mesh).get("model", 1) > 1
-    whole, blocks = {}, {}
+    tensors = {}
     for n, p in _named(params).items():
-        if split and isinstance(p, DTensor) and _EXPERT.search(n):
-            blocks[n] = p.to_local().detach()
-            whole[n] = torch.empty(p.shape, dtype=p.dtype, device="meta")
+        if held or split and isinstance(p, DTensor) and _EXPERT.search(n):
+            tensors[n] = (p.to_local() if isinstance(p, DTensor)
+                          else p).detach()
         else:
-            whole[n] = shd.gather(p)
-    model = transformer.with_params(params, whole)
-    for n, blk in blocks.items():
-        module, _, attr = n.rpartition(".")
-        setattr(model.get_submodule(module), attr,
-                torch.nn.Parameter(blk, requires_grad=False))
-    return model
+            tensors[n] = shd.gather(p)
+    return _with_blocks(params, tensors, requires_grad=False)
 
 
 def _rows(mesh, batch: dict) -> dict:
@@ -513,19 +572,29 @@ def _rows(mesh, batch: dict) -> dict:
     return batch
 
 
+def _whole_vocab(logits, cfg):
+    """Next-token logits with every vocab column: this rank's vocab block
+    gathered over ``model`` where the installed mesh splits the vocab."""
+    return tpar.gather(logits, logits.dim() - 1, transformer._vocab_plan(cfg))
+
+
 def make_prefill_step(cfg, *, mesh=None):
     """``prefill_step(params, batch) -> (B, V)`` next-token logits.  With
     ``mesh``: per-rank code over ``shard_serve_params``' blocks that
-    gathers the parameters (the experts stay this rank's), runs this
-    rank's rows of the global batch and returns their logits."""
+    gathers the parameters (the experts stay this rank's; where the
+    ``model`` axis splits the config it computes with its blocks and
+    gathers the last position's vocab blocks instead), runs this rank's
+    rows of the global batch and returns their logits."""
     fam = model_mod.family(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        if mesh is not None:
-            params, batch = _serve_whole(params, mesh), _rows(mesh, batch)
+        if mesh is None:
+            logits, _ = fam.forward(params, cfg, batch)
+            return logits[:, -1]          # next-token logits
+        params, batch = _serve_whole(params, mesh), _rows(mesh, batch)
         logits, _ = fam.forward(params, cfg, batch)
-        return logits[:, -1]          # next-token logits
+        return _whole_vocab(logits[:, -1], cfg)
 
     return prefill_step
 
@@ -534,15 +603,18 @@ def make_serve_step(cfg, *, mesh=None):
     """``serve_step(params, cache, tokens, pos) -> (logits, cache)``.  With
     ``mesh``: per-rank code as ``make_prefill_step``'s, ``cache`` this
     rank's (its rows of the batch where they divide, else the whole
-    batch's) and ``tokens`` the global batch's."""
+    batch's; its block over ``model``, ``init_cache(mesh=)``, where that
+    axis splits the config) and ``tokens`` the global batch's."""
     fam = model_mod.family(cfg)
 
     def serve_step(params, cache, tokens, pos):
-        if mesh is not None:
-            params = _serve_whole(params, mesh)
-            tokens = _rows(mesh, {"tokens": tokens})["tokens"]
+        if mesh is None:
+            logits, cache = fam.decode_step(params, cfg, cache, tokens, pos)
+            return logits[:, -1], cache
+        params = _serve_whole(params, mesh)
+        tokens = _rows(mesh, {"tokens": tokens})["tokens"]
         logits, cache = fam.decode_step(params, cfg, cache, tokens, pos)
-        return logits[:, -1], cache
+        return _whole_vocab(logits[:, -1], cfg), cache
 
     return serve_step
 
@@ -561,7 +633,8 @@ def build_cell(cfg, shape_name: str, mesh, *,
     prefill and decode: ``make_prefill_step``/``make_serve_step`` over
     ``shard_serve_params``' blocks, the global batch's tokens, and a
     decode cache of this rank's rows (the whole batch's where the batch
-    does not divide over the data axes) written at the last position."""
+    does not divide over the data axes; its block over ``model`` where
+    that axis splits the config) written at the last position."""
     info = SHAPES[shape_name]
     kind = info["kind"]
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -591,7 +664,7 @@ def build_cell(cfg, shape_name: str, mesh, *,
     # decode
     dps = _dp_size(mesh)
     rows = b // dps if b % dps == 0 else b
-    cache = _init_cache(cfg, rows, info["seq"], device)
+    cache = _init_cache(cfg, rows, info["seq"], device, mesh, b)
     cache_sh = _cache_shardings(mesh, cache_specs(cfg, shape_name, mesh)[0],
                                 b)
     fn = make_serve_step(cfg, mesh=mesh)

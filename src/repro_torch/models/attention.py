@@ -2,6 +2,12 @@
 (DeepSeek compressed-KV, absorbed decode path), the port's counterpart of
 ``repro.models.attention``.
 
+Under a mesh whose ``model`` axis splits the config (``dist.tensor_parallel``),
+``gqa_apply`` and ``gqa_decode`` are per-rank code in the layout of the
+reference's anchors: this rank's KV-head group (``"heads"``) or its block
+of query rows (``"rows"``), and in decode its block of the cache (KV heads
+or ``head_dim``), with the collectives that layout implies.
+
 Train/prefill attention has two implementations:
 
 * ``full``    — materialized (S x S) scores; fine to 8k.
@@ -16,10 +22,13 @@ attention call stands in for these einsums.
 """
 from __future__ import annotations
 
+import types
+
 import torch
 from torch import nn
 
 from repro_torch.dist import context as dist_context
+from repro_torch.dist import tensor_parallel as tpar
 
 from .modules import (apply_rope, linear, linear_init, rmsnorm,
                       rmsnorm_init, rope_angles, rope_freqs)
@@ -131,11 +140,36 @@ def _attn_constrain(q5, k, v):
     return q5, k, v
 
 
+def _local_heads(p, cfg, tp):
+    """(q heads, KV heads) of ``wq``/``wk``'s columns, checked to be this
+    rank's KV-head group over ``tp`` (all of them without it): never a
+    head cut in two."""
+    m = 1 if tp is None else tp.size
+    hd = cfg.head_dim
+    h, kvh = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd
+    if (h, kvh) != (cfg.num_heads // m, cfg.num_kv_heads // m):
+        raise ValueError(f"the attention's weights hold {h} q and {kvh} KV "
+                         f"heads: not a block of {cfg.num_heads} and "
+                         f"{cfg.num_kv_heads} over {m}")
+    return h, kvh
+
+
 def gqa_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
-    """Training/prefill self-attention. x: (B,S,D); positions: (S,) int."""
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    """Training/prefill self-attention. x: (B,S,D); positions: (S,) int.
+    Under a splitting mesh (``dist.context.tp_layout``): this rank's
+    KV-head group (its columns of ``wq``, ``wk``, ``wv``, local attention,
+    its rows of ``wo``, then the sum over ``model``), or its block of
+    query rows (``_gqa_rows``)."""
+    tp = tpar.plan(cfg)
+    layout = dist_context.tp_layout(cfg, dist_context.get_mesh(), x.shape[1])
+    if layout == "rows":
+        return _gqa_rows(p, cfg, x, positions, impl, chunk, tp)
+    tp = tp if layout == "heads" else None
+    h, kvh = _local_heads(p, cfg, tp)
+    hd = cfg.head_dim
     g = h // kvh
     b, s, _ = x.shape
+    x = tpar.copy_in(x, tp)
     q = _split_heads(linear(p.wq, x), h, hd)
     k = _split_heads(linear(p.wk, x), kvh, hd)
     v = _split_heads(linear(p.wv, x), kvh, hd)
@@ -151,15 +185,79 @@ def gqa_apply(p, cfg, x, *, positions, impl: str = "full", chunk: int = 1024):
         mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
         out = _full_attn(q, k, v, mask)
     out = out.reshape(b, s, h * hd)
-    return linear(p.wo, out)
+    return tpar.reduce_out(linear(p.wo, out), tp)
+
+
+def _whole_weights(p, cfg, tp):
+    """The attention's four weights, whole on every model rank, each
+    behind ``copy_in``: a rank's gradient of a weight is the part its
+    block of rows gives, summed over the model axis backward."""
+    _local_heads(p, cfg, None)
+
+    def one(lin):
+        out = types.SimpleNamespace(w=tpar.copy_in(lin.w, tp))
+        if hasattr(lin, "b"):
+            out.b = tpar.copy_in(lin.b, tp)
+        return out
+    return one(p.wq), one(p.wk), one(p.wv), one(p.wo)
+
+
+def _gqa_rows(p, cfg, x, positions, impl, chunk, tp):
+    """``gqa_apply`` in the ``"rows"`` layout: this rank's block of query
+    rows against the whole K and V (the causal and sliding-window mask
+    offset by the block's first row), ``wo`` on those rows, then the rows
+    gathered back into the replicated residual."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    x = tpar.copy_in(x, tp)
+    wq, wk, wv, wo = _whole_weights(p, cfg, tp)
+    sl = s // tp.size
+    r0 = tp.rank * sl
+    q = _split_heads(linear(wq, x[:, r0:r0 + sl]), h, hd)
+    k = _split_heads(linear(wk, x), kvh, hd)
+    v = _split_heads(linear(wv, x), kvh, hd)
+    cos, sin = rope_angles(positions, p.freqs)
+    q = apply_rope(q, cos[None, r0:r0 + sl, None], sin[None, r0:r0 + sl,
+                                                       None])
+    k = apply_rope(k, cos[None, :, None], sin[None, :, None])
+    q = q.reshape(b, sl, kvh, h // kvh, hd)
+    if impl == "chunked":
+        out = _chunked_attn(q, k, v, offset=r0, window=cfg.sliding_window,
+                            chunk=chunk)
+    else:
+        out = _full_attn(q, k, v, _causal_mask(sl, s, r0, cfg.sliding_window,
+                                               x.device))
+    out = linear(wo, out.reshape(b, sl, h * hd))
+    return tpar.gather(out, 1, tp)
+
+
+def _decode_valid(s, pos, cfg, device):
+    kj = torch.arange(s, device=device)[None, None, None, None, :]
+    valid = kj <= pos
+    if cfg.sliding_window is not None:
+        valid = valid & (pos - kj < cfg.sliding_window)
+    return valid
 
 
 def gqa_decode(p, cfg, x, cache_k, cache_v, pos: int):
     """Single-token decode. x: (B,1,D); cache_k/v: (B,S,KV,hd), one
     layer's views of the cache; pos: the current length, also the write
     index.  Writes this token's k and v into the cache in place and
-    returns (out, cache_k, cache_v)."""
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    returns (out, cache_k, cache_v).  Under a splitting mesh the cache
+    views are this rank's block (``dist.context.tp_cache_layout``): its
+    KV-head group (its heads end to end, its rows of ``wo``, then the sum
+    over ``model``), else its slice of ``head_dim`` (``_gqa_decode_hd``),
+    else the whole cache, which the reference leaves unsplit over
+    ``model`` there."""
+    tp = tpar.plan(cfg)
+    hd = cfg.head_dim
+    if tp is not None and tp.cache == "head_dim":
+        return _gqa_decode_hd(p, cfg, x, cache_k, cache_v, pos, tp)
+    tp = tp if tp is not None and tp.cache == "heads" else None
+    h, kvh = _local_heads(p, cfg, tp)
+    if tuple(cache_k.shape[2:]) != (kvh, hd):
+        raise ValueError(f"a cache of {tuple(cache_k.shape[2:])} (KV, hd): "
+                         f"not this rank's ({kvh}, {hd})")
     g = h // kvh
     b = x.shape[0]
     s = cache_k.shape[1]
@@ -176,15 +274,77 @@ def gqa_decode(p, cfg, x, cache_k, cache_v, pos: int):
     scale = hd ** -0.5
     scores = _einsum("bqkgh,bskh->bkgqs", q, cache_k).to(torch.float32)
     scores = scores * scale
-    kj = torch.arange(s, device=x.device)[None, None, None, None, :]
-    valid = kj <= pos
-    if cfg.sliding_window is not None:
-        valid = valid & (pos - kj < cfg.sliding_window)
-    scores = torch.where(valid, scores, NEG_INF)
+    scores = torch.where(_decode_valid(s, pos, cfg, x.device), scores,
+                         NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _einsum("bkgqs,bskh->bqkgh", probs, cache_v)
     out = out.reshape(b, 1, h * hd)
-    return linear(p.wo, out), cache_k, cache_v
+    return tpar.reduce_out(linear(p.wo, out), tp), cache_k, cache_v
+
+
+def _hd_cols(lin, n, hd, idx):
+    """``lin``'s output columns ``idx`` of each of its ``n`` heads: a
+    linear layer of (n * len(idx)) outputs."""
+    w = lin.w.reshape(lin.w.shape[0], n, hd)[:, :, idx]
+    out = types.SimpleNamespace(w=w.reshape(w.shape[0], -1))
+    if hasattr(lin, "b"):
+        out.b = lin.b.reshape(n, hd)[:, idx].reshape(-1)
+    return out
+
+
+def _rope_slice(x_own, x_partner, cos, sin, idx, half):
+    """``apply_rope``'s values at the dims ``idx`` of the last axis, from
+    ``x`` at ``idx`` and at each one's rotary partner (``idx`` +- half):
+    the same products and sums, in the same order."""
+    freq = idx % half
+    c, s = cos[..., freq], sin[..., freq]
+    xf, pf = x_own.to(torch.float32), x_partner.to(torch.float32)
+    out = torch.where(idx < half, xf * c - pf * s, xf * c + pf * s)
+    return out.to(x_own.dtype)
+
+
+def _gqa_decode_hd(p, cfg, x, cache_k, cache_v, pos, tp):
+    """Decode with the cache's ``head_dim`` over ``model`` (the KV heads do
+    not divide the axis; the weights are whole on every rank): this
+    rank's slice of every head's q, k and v (q and k with their rotary
+    partners), its slice of k and v written into its cache block, the
+    partial q.k over its slice summed over ``model`` before the softmax,
+    then ``probs . v_slice``, the rows of ``wo`` for (every head, this
+    slice), and the sum."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hl = hd // tp.size
+    if cache_k.shape[-1] != hl:
+        raise ValueError(f"a cache of head_dim {cache_k.shape[-1]}: not this "
+                         f"rank's block of {hd}")
+    b = x.shape[0]
+    half = hd // 2
+    idx = torch.arange(tp.rank * hl, (tp.rank + 1) * hl, device=x.device)
+    partner = (idx + half) % hd
+    q = _split_heads(linear(_hd_cols(p.wq, h, hd, idx), x), h, hl)
+    qp = _split_heads(linear(_hd_cols(p.wq, h, hd, partner), x), h, hl)
+    k = _split_heads(linear(_hd_cols(p.wk, kvh, hd, idx), x), kvh, hl)
+    kp = _split_heads(linear(_hd_cols(p.wk, kvh, hd, partner), x), kvh, hl)
+    v = _split_heads(linear(_hd_cols(p.wv, kvh, hd, idx), x), kvh, hl)
+    position = torch.full((1,), pos, dtype=torch.float32, device=x.device)
+    cos, sin = rope_angles(position, p.freqs)
+    cos, sin = cos[None, :, None], sin[None, :, None]
+    q = _rope_slice(q, qp, cos, sin, idx, half)
+    k = _rope_slice(k, kp, cos, sin, idx, half)
+    cache_k[:, pos].copy_(k[:, 0])
+    cache_v[:, pos].copy_(v[:, 0])
+    q = q.reshape(b, 1, kvh, h // kvh, hl)
+    dt = torch.promote_types(q.dtype, cache_k.dtype)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.to(torch.float32),
+                          cache_k.to(torch.float32))
+    scores = tpar.reduce_out(scores, tp).to(dt).to(torch.float32)
+    scores = scores * hd ** -0.5
+    scores = torch.where(_decode_valid(cache_k.shape[1], pos, cfg,
+                                       x.device), scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _einsum("bkgqs,bskh->bqkgh", probs, cache_v).reshape(b, 1, h * hl)
+    wo = p.wo.w.reshape(h, hd, -1)[:, idx].reshape(h * hl, -1)
+    out = torch.matmul(out, wo.to(out.dtype))
+    return tpar.reduce_out(out, tp), cache_k, cache_v
 
 
 # ----------------------------------------------------------------------- MLA

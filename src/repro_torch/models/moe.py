@@ -27,6 +27,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.tensor_parallel import CopyIn, ReduceOut
+
 from .modules import _param, linear, linear_init, normal_
 
 
@@ -161,43 +163,6 @@ def moe_apply(p, cfg, x):
 
 
 # ------------------------------------------------- expert parallelism (SPMD)
-class _ToModel(torch.autograd.Function):
-    """The identity forward; the backward sums the gradient over the model
-    axis's group.  The entry of a tensor that every model rank holds
-    whole (the reference's ``shard_map`` in_spec without ``model``): each
-    rank's gradient is the part its experts give, and the sum is the
-    tensor's."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _SumOverModel(torch.autograd.Function):
-    """``all_reduce`` (sum) over the model axis's group forward, the
-    identity backward: the reference's ``psum(combined, "model")``, whose
-    gradient reaches each rank's partial once.  (The backward of
-    ``torch.distributed.nn``'s all-reduce is another all-reduce, which
-    would multiply the gradient by the model axis's size.)"""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _data_mean(aux, mesh):
     """``aux`` averaged over the mesh's data axes (the reference's
     ``pmean(aux, dp)``), with the gradient of this rank's own ``aux``: the
@@ -248,18 +213,18 @@ def moe_apply_sharded(p, cfg, x, mesh):
     ws = []
     for w in (p.wi.w, p.wg.w, p.wo.w):
         if w.shape[0] == e and tp > 1:
-            w = _ToModel.apply(w, group)[lo:lo + el]
+            w = CopyIn.apply(w, group)[lo:lo + el]
         elif w.shape[0] != el:
             raise ValueError(f"expert weights of {w.shape[0]} experts: "
                              f"neither all {e} nor this rank's {el}")
         ws.append(w.to(cd))
     if tp > 1:
-        xt_in, g_in = _ToModel.apply(xt, group), _ToModel.apply(top_g, group)
+        xt_in, g_in = CopyIn.apply(xt, group), CopyIn.apply(top_g, group)
     else:
         xt_in, g_in = xt, top_g
     out = _experts(xt_in, top_e, g_in, *ws, lo, capacity(cfg, b * s))
     if tp > 1:
-        out = _SumOverModel.apply(out, group)          # one collective
+        out = ReduceOut.apply(out, group)          # one collective
     out = _shared(p, cfg, xt, out)
     return out.reshape(b, s, d).to(x.dtype), aux.to(torch.float32)
 

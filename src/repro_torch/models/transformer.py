@@ -21,7 +21,13 @@ functions of (params, cfg, ...), as in the reference, so one set of
 weights runs under another config's compute dtype; ``Transformer``'s
 methods call them with its own config.  The reference's ``constrain``
 anchors stand at its sites (``repro_torch.dist.constrain``: per-rank code,
-so they return their input).  Training's loss is here too
+so they return their input); under a mesh whose ``model`` axis splits the
+config (``dist.tensor_parallel.plan``) the layers compute with this
+rank's blocks where the anchors split them: the attention (``attention``),
+the MLP's hidden, the vocab of the head (``forward`` returns this rank's
+vocab block of the logits, ``parallel_cross_entropy`` reduces over the
+blocks) and of the table when serving holds its block, and the decode
+cache (``init_cache(mesh=)``).  Training's loss is here too
 (``parallel_cross_entropy``, ``loss_fn``), and ``forward`` runs each
 layer, and each hybrid group around its layers, under
 ``torch.utils.checkpoint`` when gradients are on, the reference's
@@ -41,7 +47,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.embed_grad import embedding_lookup
-from repro_torch.dist.context import constrain
+from repro_torch.dist import tensor_parallel as tpar
+from repro_torch.dist.context import constrain, tp_cache_layout
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -64,12 +71,20 @@ def mlp_init(generator, cfg, dtype, d_ff: int, device=None) -> nn.Module:
 
 
 def mlp_apply(p, cfg, x):
+    """The MLP; under a mesh that splits its hidden, this rank's columns
+    of ``wi``/``wg``, its rows of ``wo``, then the sum over ``model``."""
+    tp = tpar.plan(cfg)
+    tp = tp if tp is not None and tp.mlp else None
+    if tp is not None and p.wi.w.shape[1] != cfg.d_ff // tp.size:
+        raise ValueError(f"the MLP's wi holds {p.wi.w.shape[1]} columns: not "
+                         f"this rank's block of {cfg.d_ff}")
+    x = tpar.copy_in(x, tp)
     if cfg.mlp_type == "swiglu":
         h = F.silu(linear(p.wg, x)) * linear(p.wi, x)
     else:
         h = F.gelu(linear(p.wi, x), approximate="tanh")   # jax.nn.gelu
     h = constrain(h, "dp", None, "tp")     # ff-sharded hidden anchor
-    return linear(p.wo, h)
+    return tpar.reduce_out(linear(p.wo, h), tp)
 
 
 # ------------------------------------------------------------------- layers
@@ -343,12 +358,39 @@ def _embed_in(p, cfg, batch, compute_dtype):
     if cfg.input_mode == "embeddings":
         x = linear(p.frontend_proj, batch["embeds"].to(compute_dtype))
     else:
-        x = embedding_lookup(p.embed.table, batch["tokens"],
-                             cfg.embed_grad).to(compute_dtype)
+        tp = _vocab_plan(cfg)
+        if tp is not None and p.embed.table.shape[0] != cfg.padded_vocab:
+            x = _vocab_parallel_lookup(p.embed.table, batch["tokens"], cfg,
+                                       compute_dtype, tp)
+        else:
+            x = embedding_lookup(p.embed.table, batch["tokens"],
+                                 cfg.embed_grad).to(compute_dtype)
         # the reference scales by a weakly typed Python float, which JAX
         # rounds to the compute dtype before the product
         x = x * _rounded(cfg.d_model ** 0.5, compute_dtype)
     return x
+
+
+def _vocab_plan(cfg):
+    """``tensor_parallel.plan`` where it splits the vocab, else None."""
+    tp = tpar.plan(cfg)
+    return tp if tp is not None and tp.vocab else None
+
+
+def _vocab_parallel_lookup(table, tokens, cfg, compute_dtype, tp):
+    """The lookup over this rank's block of vocab rows: an id outside the
+    block reads zeros, and the sum over ``model`` holds each id's row
+    exactly (one rank's row plus zeros), so no step gathers the table."""
+    vl = cfg.padded_vocab // tp.size
+    if table.shape[0] != vl:
+        raise ValueError(f"a table of {table.shape[0]} rows: neither the "
+                         f"whole {cfg.padded_vocab} nor this rank's block")
+    local = tokens - tp.rank * vl
+    inside = (local >= 0) & (local < vl)
+    x = embedding_lookup(table, torch.where(inside, local, 0),
+                         cfg.embed_grad).to(compute_dtype)
+    x = torch.where(inside[..., None], x, 0)
+    return tpar.reduce_out(x, tp)
 
 
 def _rounded(value: float, dtype) -> float:
@@ -357,17 +399,35 @@ def _rounded(value: float, dtype) -> float:
 
 
 def _head(p, cfg, x):
+    """The f32 logits; under a mesh that splits the vocab, this rank's
+    block of them, (..., padded_vocab / m): its columns of ``lm_head``, or
+    its rows of the tied table (of the whole table, as training holds it,
+    through ``scatter``: the head's gradient lands on these rows only,
+    beside the lookup's, which every model rank computes whole once)."""
     x = rmsnorm(p.ln_f, x, cfg.norm_eps)
+    tp = _vocab_plan(cfg)
+    x = tpar.copy_in(x, tp)
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, p.embed.table.to(x.dtype).T)
+        table = p.embed.table
+        if tp is not None and table.shape[0] == cfg.padded_vocab:
+            table = tpar.scatter(table, 0, tp)
+        elif tp is not None and table.shape[0] != cfg.padded_vocab // tp.size:
+            raise ValueError(f"a table of {table.shape[0]} rows: neither the "
+                             f"whole {cfg.padded_vocab} nor this rank's block")
+        logits = torch.matmul(x, table.to(x.dtype).T)
     else:
+        if tp is not None and \
+                p.lm_head.w.shape[1] != cfg.padded_vocab // tp.size:
+            raise ValueError(f"lm_head holds {p.lm_head.w.shape[1]} columns: "
+                             f"not this rank's block of {cfg.padded_vocab}")
         logits = linear(p.lm_head, x)
     return logits.to(torch.float32)
 
 
 def forward(params, cfg, batch, *, impl: str | None = None):
     """batch: {"tokens": (B,S)} or {"embeds": (B,S,Fd)}. Returns (logits,
-    aux); aux is the MoE layers' summed aux loss, 0 for the others."""
+    aux); aux is the MoE layers' summed aux loss, 0 for the others.  Under
+    a mesh that splits the vocab the logits are this rank's block."""
     cd = dtype_of(cfg.compute_dtype)
     x = _embed_in(params, cfg, batch, cd)
     s = x.shape[1]
@@ -413,11 +473,18 @@ def _hybrid_group(glayers, lora, shared, cfg, x, positions, impl):
     return shared_attn_apply(shared, lora, cfg, x, positions, impl=impl)
 
 
-def parallel_cross_entropy(logits, labels):
+def parallel_cross_entropy(logits, labels, tp=None):
     """Per-position cross entropy, written as the reference writes it for
     a vocab-sharded tensor: ``logsumexp`` minus the logit picked by a
     comparison with an int32 iota (no gather), so the two packages round
-    the same sums.  logits: (B, S, V) f32; labels: (B, S) int."""
+    the same sums.  logits: (B, S, V) f32; labels: (B, S) int.
+
+    With ``tp`` (a ``tensor_parallel.Plan``) ``logits`` is this rank's
+    vocab block and the reductions run over the blocks: the max over
+    ``model`` (no gradient), then one sum of the block's exps and its
+    picked logit (zero where the iota's block does not hold the label)."""
+    if tp is not None:
+        return _parallel_ce_blocks(logits, labels, tp)
     lse = torch.logsumexp(logits, dim=-1)                       # (B,S)
     vocab_iota = torch.arange(logits.shape[-1], dtype=torch.int32,
                               device=logits.device)
@@ -427,21 +494,38 @@ def parallel_cross_entropy(logits, labels):
     return lse - picked
 
 
+def _parallel_ce_blocks(logits, labels, tp):
+    vl = logits.shape[-1]
+    top = tpar.all_max(logits.detach().amax(dim=-1), tp)          # (B,S)
+    vocab_iota = torch.arange(tp.rank * vl, (tp.rank + 1) * vl,
+                              dtype=torch.int32, device=logits.device)
+    picked = torch.where(vocab_iota == labels[..., None], logits,
+                         0.0).sum(dim=-1)
+    sums = tpar.reduce_out(torch.stack(
+        [torch.exp(logits - top[..., None]).sum(dim=-1), picked]), tp)
+    return top + torch.log(sums[0]) - sums[1]
+
+
 def loss_fn(params, cfg, batch):
     """Next-token CE + the MoE aux loss. batch needs "labels":
     (B,S) int. Returns (loss, {"nll", "aux"})."""
     logits, aux = forward(params, cfg, batch)
-    nll = parallel_cross_entropy(logits, batch["labels"])
+    nll = parallel_cross_entropy(logits, batch["labels"], _vocab_plan(cfg))
     loss = nll.mean() + 0.01 * aux
     return loss, {"nll": nll.mean(), "aux": aux}
 
 
 # ------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device=None):
+               device=None, mesh=None, global_batch=None):
     """The decode cache, zeroed: per layer k and v (or MLA's compressed
     ckv and kr) of ``max_len`` positions in ``dtype``, the SSM layers'
-    f32 conv ring and state, the hybrid's per-site k and v."""
+    f32 conv ring and state, the hybrid's per-site k and v.  With a
+    ``mesh`` whose ``model`` axis splits the config, k and v are this
+    rank's block: its KV heads or its slice of ``head_dim``, or the whole
+    cache where the reference leaves ``model`` off it
+    (``dist.context.tp_cache_layout`` of ``global_batch`` rows, ``batch``
+    by default; shape-only, no process group)."""
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
@@ -455,7 +539,14 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
         if cfg.attention == "mla":
             return {"ckv": zeros(L, batch, max_len, cfg.kv_lora_rank),
                     "kr": zeros(L, batch, max_len, cfg.rope_head_dim)}
-        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        layout = "whole" if mesh is None else tp_cache_layout(
+            cfg, mesh, batch=global_batch or batch, seq=max_len)
+        if layout == "heads":
+            kvh //= tpar.tp_size(mesh)
+        elif layout == "head_dim":
+            hd //= tpar.tp_size(mesh)
+        shape = (L, batch, max_len, kvh, hd)
         return {"k": zeros(*shape), "v": zeros(*shape)}
     if cfg.family == "ssm":
         return {"ssm": states(cfg.num_layers)}

@@ -89,6 +89,17 @@ DIFFERENCES = {
                     "linearly)",
         '"--device"': "--device: the card by default, cpu for the tests",
     },
+    "dist/context.py": {
+        "def tp_layout": "constrain still returns its input: the per-rank "
+                         "module code computes with its blocks in the "
+                         "layout tp_layout chooses and calls the "
+                         "collectives of dist/tensor_parallel.py, the "
+                         "port's stand-in for GSPMD",
+        "def tp_cache_layout": "the reference's third cache layout, the KV "
+                               "length over model, is refused with a "
+                               "ValueError naming ROADMAP item 13.7, not "
+                               "run whole",
+    },
     "launch/roofline.py": {
         "989.4e12": "the H100 SXM's bf16 peak in place of the v5e's 197e12",
         "3.35e12": "the H100's HBM3 rate in place of 819e9",
@@ -100,17 +111,22 @@ DIFFERENCES = {
                                 "parse_collectives' HLO text",
     },
     "launch/steps.py": {
-        "def shard_serve_params": "a serving rank gathers every parameter "
-                                  "whole from its serve-mode spec (the "
-                                  "dense layers run whole on every model "
-                                  "rank), the routed experts kept as its "
-                                  "E / tp block",
+        "def shard_serve_params": "where the model axis splits the config, a "
+                                  "serving rank holds tp_blocks' blocks on "
+                                  "the anchors' dims and every other leaf "
+                                  "whole, so no step gathers a weight (the "
+                                  "reference splits the rest over model or "
+                                  "data and gathers as it needs); else it "
+                                  "gathers every parameter whole from its "
+                                  "serve-mode spec, the routed experts kept "
+                                  "as its E / tp block",
         "def _rows": "a serving rank runs its rows of the batch where they "
                      "divide over the data axes, else the whole batch",
         "rows = b // dps": "the decode cache is the rank's rows (the whole "
-                           "batch's at long_500k): neither the KV heads "
-                           "over model nor the sequence over data "
-                           "(_cache_shardings' put(2, dp, dps)) split it",
+                           "batch's at long_500k), split over model as "
+                           "cache_specs splits it (KV heads or head_dim), "
+                           "but the sequence over data (_cache_shardings' "
+                           "put(2, dp, dps)) does not split it",
         "donate=True, mesh=mesh": "the train cell runs the in-place ZeRO "
                                   "step (the state gathered whole on every "
                                   "rank)",
@@ -373,7 +389,9 @@ for name, shape, changes, steps_n in cases:
     serve = steps.make_serve_step(cfg, mesh=mesh)
     rows = toks.shape[0] // shape[0]
     cache = family(cfg).init_cache(cfg, rows, toks.shape[1],
-                                   dtype=torch.float32, device="cpu")
+                                   dtype=torch.float32, device="cpu",
+                                   **({} if cfg.is_encdec else
+                                      {"mesh": mesh}))
     for t in range(steps_n):
         logits, cache = serve(params, cache, toks[:, t:t + 1], t)
         res[f"step{t}"] = logits.numpy()

@@ -53,6 +53,12 @@ DIFFERENCES = [
      "across jax releases; the port's meshes are DeviceMeshes over the "
      "default process group (repro_torch.dist.make_mesh) and its SPMD "
      "code is per-rank"),
+    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/encdec.py",
+     "TP_FAMILIES", "port",
+     "the enc-dec is outside tensor_parallel.TP_FAMILIES: under a mesh "
+     "its encoder, decoder and logits run whole on every model rank, "
+     "where GSPMD splits the logits' vocab at encdec.py's anchor "
+     "(ROADMAP item 13.7)"),
 ]
 
 

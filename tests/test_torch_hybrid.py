@@ -63,6 +63,11 @@ DIFFERENCES = [
      "src/repro/models/transformer.py", "_site_qkv", "port",
      "the shared projections plus a site's LoRA deltas, split in heads, "
      "one function that the prefill and the decode both call"),
+    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/transformer.py",
+     "TP_FAMILIES", "port",
+     "the hybrid is outside tensor_parallel.TP_FAMILIES: under a mesh "
+     "its SSM layers and its shared block with each site's LoRA run "
+     "whole on every model rank (ROADMAP item 13.7)"),
 ]
 
 

@@ -78,13 +78,14 @@ DIFFERENCES = [
     ("dist/context.py", "with_sharding_constraint", "reference",
      "constrain returns its input (the local tensor): the reference hands "
      "each anchor to GSPMD as a layout hint; the port runs per-rank code, "
-     "in which each rank already holds its block"),
-    ("models/moe.py", "_ToModel", "port",
-     "the model axis splits only the experts (moe_apply_sharded, whose "
-     "replicated inputs' gradients are summed over model on the way "
-     "back): the tensor parallelism GSPMD derives from the anchors for the "
-     "dense layers is not split in the port; the values are equal and "
-     "that work is repeated on every model rank"),
+     "whose module code computes with the rank's blocks"),
+    ("models/transformer.py", "_vocab_parallel_lookup", "port",
+     "tensor parallelism over model as per-rank code "
+     "(dist/tensor_parallel.py) where GSPMD splits at the anchors: the "
+     "dense, vlm and GQA MoE families' attention, MLP, vocab and cache "
+     "split, partial sums added in another order; MLA, the SSD, the "
+     "hybrid's shared block and the enc-dec run whole on every model rank "
+     "(ROADMAP item 13.7)"),
     ("serving/decode.py", "device", "port",
      "Server(cfg, serve_cfg, model, device=...): the server takes the "
      "port's module (its parameters inside) and runs on the card unless "

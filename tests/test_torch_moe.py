@@ -62,10 +62,11 @@ DIFFERENCES = [
      "objective (aux: this shard's, its value averaged over the data "
      "axes), which the sharded train step averages"),
     ("src/repro_torch/models/moe.py", "src/repro/models/moe.py",
-     "_SumOverModel", "port",
+     "ReduceOut", "port",
      "psum(combined, 'model') is an all_reduce whose backward is the "
-     "identity: torch.distributed.nn's all-reduce would send another "
-     "all-reduce back, tp times the reference's gradient"),
+     "identity (tensor_parallel.ReduceOut): torch.distributed.nn's "
+     "all-reduce would send another all-reduce back, tp times the "
+     "reference's gradient"),
     ("src/repro_torch/models/moe.py", "src/repro/models/moe.py",
      "_combine", "port",
      "the slabs and the combine are gathers, not scatter-adds: each token's "
@@ -76,6 +77,13 @@ DIFFERENCES = [
      "copy_", "port",
      "mla_decode writes this token's ckv and kr at pos into the cache in "
      "place, as gqa_decode writes k and v"),
+    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/attention.py",
+     "TP_FAMILIES", "port",
+     "MLA (deepseek-v2) is outside tensor_parallel.TP_FAMILIES: under "
+     "a mesh its attention, its leading dense layer, its embedding and "
+     "its head run whole on every model rank, where GSPMD splits them "
+     "at the anchors (ROADMAP item 13.7); its routed experts split as "
+     "moe_apply_sharded splits them, and dbrx's GQA layers split"),
 ]
 
 

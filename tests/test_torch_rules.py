@@ -41,6 +41,7 @@ def test_port_files_exist():
                  "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/train/trainer.py",
                  "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/dist/tensor_parallel.py",
                  "src/repro_torch/examples/train_lm.py", "chip_smoke.py"):
         assert want in names
 
@@ -59,3 +60,21 @@ def test_checker_catches_forbidden_imports():
            "def f():\n    from jax import numpy\n")
     assert _forbidden_imports(src) == ["1 jax.numpy", "2 repro.core",
                                        "3 repro", "6 jaxlib", "8 jax"]
+
+
+# the port's side of a test that holds the port against the reference in
+# subprocesses: the code each port process runs, by its variable's name
+PORT_SIDES = {"tests/test_torch_tensor_parallel.py": ("_RANK_CODE",
+                                                      "_FLOPS_CODE")}
+
+
+@pytest.mark.parametrize("path,name", [(p, n) for p, names in
+                                       PORT_SIDES.items() for n in names])
+def test_port_side_of_a_test_imports_no_jax(path, name):
+    tree = ast.parse((ROOT / path).read_text())
+    code = [node.value.value for node in tree.body
+            if isinstance(node, ast.Assign)
+            and any(getattr(t, "id", None) == name for t in node.targets)]
+    assert len(code) == 1, name
+    assert "repro_torch" in code[0]
+    assert _forbidden_imports(code[0]) == []

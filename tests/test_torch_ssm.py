@@ -64,14 +64,21 @@ DIFFERENCES = [
      "0 * inf = NaN; the port's gradients there are finite"),
     ("src/repro_torch/dist/context.py", "src/repro/dist/context.py",
      "NamedSharding", "reference",
-     "the SSD's head-parallel anchors (and every other) name a layout the "
-     "port does not build: constrain returns its input, and under a mesh "
-     "every model rank runs all the heads"),
+     "the SSD's head-parallel anchors name a layout the port does not "
+     "build: constrain returns its input (the families that split do so "
+     "in their module code), and under a mesh every model rank runs all "
+     "the heads"),
     ("src/repro_torch/models/ssm.py", "src/repro/models/ssm.py", "copy_",
      "port",
      "mamba2_decode writes the conv ring and the SSM state into the "
      "caller's state in place and returns it, where the reference returns "
      "a new state"),
+    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/ssm.py",
+     "TP_FAMILIES", "port",
+     "the SSD is outside tensor_parallel.TP_FAMILIES: under a mesh "
+     "every model rank runs all its heads, its embedding and its head "
+     "whole, where GSPMD splits the heads at the anchors (ROADMAP item "
+     "13.7)"),
 ]
 
 
