@@ -231,9 +231,20 @@ Phases, each of which exits non-zero when it fails:
    states share the card, so the ranks take turns at their updates) at
    (1, 4096) against the same steps on an NCCL world-1 mesh: logits within 2e-2, loss and grad norm within 1e-5,
    greedy tokens the same on every rank, the split leaves' bytes 1/m per
-   rank, step ms by CUDA events and the share of it in collectives; each
-   part's seconds, each rank's peak memory and the step ms by CUDA
-   events; no kernel of K1-K5 launched;
+   rank, step ms by CUDA events and the share of it in collectives; (7)
+   the same for every other family: after part 6 in its process, the
+   KV-length decode cache on h2o-danube-3-4b over 2 layers on (1, 7),
+   then mamba2-370m (2 layers), seamless-m4t-large-v2 (2 + 2 layers) and
+   zamba2-1.2b (7 layers: one shared site), case by case until the main
+   path waits for that process; deepseek-v2-236b (MLA, 2 layers, 16
+   routed experts) and the cases left in a process of its own
+   (``--tp-families``) beside ``[baselines]``' host builds, which their
+   first card work waits for; the four families on gloo (1, 2);
+   ``--mesh-worker tpf RANK``, each rank's f32 prefill, bf16 decode steps
+   and one f32 train step at (1, 512) ((1, 896) on (1, 7)) against an
+   NCCL world-1 mesh: prefill logits, loss and grad norm within 1e-5,
+   decode logits within 2e-2; each part's seconds, each rank's peak
+   memory and the step ms by CUDA events; no kernel of K1-K5 launched;
 5. dispatch: the card's counterpart of ``benchmarks/run.py::bench_dispatch``
    — five ``paper_like`` tensors built with 512 non-zeros per block (many
    launches), mode 0, rank 32: microseconds and dispatches per call of the
@@ -1477,21 +1488,33 @@ def event_ms(fn, reps: int = MEDIAN_OF) -> float:
     return statistics.median(event_times(fn, reps))
 
 
-def baselines_phase(runs, dev) -> None:
+def baselines_phase(runs, dev, before_card=None) -> None:
     """The paper's comparison formats on both tensors at full size: each
     format's host build and upload seconds, device bytes beside the BLCO
     launch cache, peak device memory (one format resident at a time), and
     per mode its ms beside the fused K1/K2 call, each output held against
-    the fused one."""
+    the fused one.  Every host build runs first, three threads at once
+    (each build's seconds are its thread's), then ``before_card()`` (the
+    card is another part's until then), then the card's work."""
     import torch
     from repro_torch.core import baselines
     from repro_torch.engine import BaselinePlan
     formats = {"coo": (baselines.COOFormat, baselines.DeviceCOO),
                "fcoo": (baselines.FCOOFormat, baselines.DeviceFCOO),
                "csf": (baselines.CSFFormat, baselines.DeviceCSF)}
+    # the host builds (numpy sorts, which release the GIL), three at once,
+    # the largest first
+    jobs = sorted(((run["name"], kind, host_cls, run["tensor"])
+                   for run in runs
+                   for kind, (host_cls, _) in formats.items()),
+                  key=lambda j: (-j[3].nnz, j[1] == "coo"))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        built = dict(zip([(name, kind) for name, kind, *_ in jobs],
+                         pool.map(lambda j: timed(j[2].build, j[3]), jobs)))
+    if before_card is not None:
+        before_card()
     for run in runs:
-        name, t, fs, dims = run["name"], run["tensor"], run["factors"], \
-            run["dims"]
+        name, fs, dims = run["name"], run["factors"], run["dims"]
         fused, cache_bytes = run["plan"], run["plan"].device_bytes()
         say(f"[baselines] {name}: the JAX package's COO, F-COO and CSF "
             f"ported as plain PyTorch (index_select, index_add_, "
@@ -1499,14 +1522,12 @@ def baselines_phase(runs, dev) -> None:
             f"below are not the paper's 2.12-2.6x claim")
         fused_ms = {mode: event_ms(lambda: fused.mttkrp(fs, mode))
                     for mode in range(len(dims))}
-        for kind, (host_cls, dev_cls) in formats.items():
+        for kind, (_, dev_cls) in formats.items():
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            fmt = host_cls.build(t)
-            build_s = time.perf_counter() - t0
+            fmt, build_s = built.pop((name, kind))
             t0 = time.perf_counter()
             dev_fmt = dev_cls(fmt, device=dev)
             torch.cuda.synchronize()
@@ -4546,14 +4567,15 @@ def mesh_launcher(proc, t0) -> None:
 
 
 def part_dir(part: str) -> str:
-    """Where a worker part's files live: part 6's under ``TP_DIR``."""
-    return TP_DIR if part == "tp" else MESH_DIR
+    """Where a worker part's files live: part 6's under ``TP_DIR``, part
+    7's under ``TPF_DIR``."""
+    return {"tp": TP_DIR, "tpf": TPF_DIR}.get(part, MESH_DIR)
 
 
 def mesh_worker(part: str, rank: int) -> int:
-    """One gloo rank of part 2 (``zero``), part 3 (``ep``) or part 6
-    (``tp``, on the mesh its config names) on the card; writes its report
-    and returns 0 when every check held."""
+    """One gloo rank of part 2 (``zero``), part 3 (``ep``), part 6 (``tp``)
+    or part 7 (``tpf``; these two on the mesh their config names) on the
+    card; writes its report and returns 0 when every check held."""
     import torch
     import torch.distributed as dist
     if not torch.cuda.is_available():
@@ -4581,6 +4603,8 @@ def mesh_worker(part: str, rank: int) -> int:
             report = zero_worker(cfg_in, mesh, dev, pre)
         elif part == "ep":
             report = ep_worker(cfg_in, mesh, dev, pre)
+        elif part == "tpf":
+            report = tpf_worker(cfg_in, mesh, dev, pre)
         else:
             report = tp_worker(cfg_in, mesh, dev, pre)
         set_mesh(None)
@@ -4943,10 +4967,314 @@ def mesh_tp(mesh, dev) -> None:
         raise AssertionError(f"[mesh] part 6: {bad}")
 
 
-def tp_part() -> int:
-    """``chip_smoke.py --tp-part``: part 6 in a process of its own (NCCL
-    world 1 on a (1, 1) mesh here, the gloo workers below it), its lines
-    to stdout; writes ``TP_DIR/done.json`` with its verdict."""
+# part 7: tensor parallelism over model for the families beyond part 6's:
+# MLA (deepseek-v2-236b with 16 routed experts, as part 2: two whole train
+# states share the card beside the main process's tensors; at 32 experts
+# the ranks peak at 41.4 GB each on an H100 80GB, more than it has free
+# there), the
+# SSD
+# (mamba2-370m), the hybrid's shared block with its LoRA (zamba2-1.2b at 7
+# layers: one pre layer, then one group of six and its shared site) and the
+# enc-dec (seamless-m4t-large-v2), each at full width with its depth cut,
+# on gloo (1, 2) ranks; and the KV-length decode cache: h2o-danube-3-4b
+# over 2 layers on (1, 7), 7 dividing neither its 8 KV heads nor its
+# head_dim of 120, its decode steps crossing three rank blocks of a cache
+# of TPF_CACHE positions (its window of 4096 does not bite there: the
+# window across blocks is held on the CPU, tests/
+# test_torch_tensor_parallel_families.py).  Each rank's f32 prefill, its
+# bf16 teacher-forced decode steps and one f32 ZeRO train step (int8 v) are
+# held against the same steps on the NCCL world-1 mesh to TP_TOL.
+TPF_CASES = (
+    ("deepseek-v2-236b", dict(num_layers=2, num_experts=16), (1, 2)),
+    ("mamba2-370m", dict(num_layers=2), (1, 2)),
+    ("zamba2-1.2b", dict(num_layers=7), (1, 2)),
+    ("seamless-m4t-large-v2", dict(num_layers=2, encoder_layers=2), (1, 2)),
+    ("h2o-danube-3-4b", dict(num_layers=2), (1, 7)))
+TPF_SEQ = 512               # prefill and train tokens: 2 SSD chunks of 256
+TPF_ROWS_SEQ = 896          # 7 x 128: (1, 7)'s "rows" layout
+TPF_DECODE = 4
+TPF_CACHE = 21              # (1, 7): blocks of 3 positions
+TPF_LENGTH_DECODE = 9       # three blocks crossed
+TPF_DIR = os.path.join(ROOT, "build", "tpf")
+# in the smoke, part 6's process runs danube's case, then the light
+# families' one by one while the main path's host work lasts (it stops
+# once the main path waits for it: MAIN_WAITING); part 7's own process
+# runs deepseek's and whatever the first left, beside [baselines]' host
+# builds.  The windows' lengths vary by tens of seconds between runs
+TPF_WITH_PART6 = ("h2o-danube-3-4b", "mamba2-370m", "seamless-m4t-large-v2",
+                  "zamba2-1.2b")
+TPF_ALONE = ("deepseek-v2-236b",)
+MAIN_WAITING = "main_waiting"   # written in a side part's directory
+
+
+def tpf_shape(arch, mesh_shape):
+    """(prefill/train tokens, cache positions, decode steps) of ``arch``
+    on ``mesh_shape``."""
+    if mesh_shape[1] == 7:
+        return TPF_ROWS_SEQ, TPF_CACHE, TPF_LENGTH_DECODE
+    return TPF_SEQ, TPF_SEQ, TPF_DECODE
+
+
+def tpf_run(cfg, mesh, dev, shape) -> dict:
+    """Part 7's steps of ``cfg``'s model drawn from ``SEED + 9`` on ``mesh``
+    (installed), at the sizes of its case's mesh ``shape``: the f32 prefill's next-token logits (warm, then timed),
+    the bf16 teacher-forced decode steps from position 0 (the enc-dec's
+    memory prefilled from ``ENC_FRAMES`` seeded frames), one in-place f32
+    ZeRO train step with the int8 second moment; with the bytes of the
+    leaves ``tp_blocks`` splits, held and whole, each step's ms and
+    collectives' ms, and the cache's block shapes."""
+    import dataclasses
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.model import family
+    from repro_torch.optim import adamw
+    s, cache_len, n_dec = tpf_shape(cfg.name, shape)
+    fam = family(cfg)
+    batch = family_batch(cfg, 1, s, dev, seed=SEED + 9)
+    inputs = dict(batch)
+    batch["labels"] = family_batch(cfg, 1, s, dev, seed=SEED + 10)["tokens"]
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(SEED + 9))
+    named = dict(model.named_parameters())
+    split = shd.tp_blocks(named, cfg, mesh)
+    params = steps.shard_serve_params(model, mesh)
+    out = {"held": sum(p.to_local().numel() * p.element_size()
+                       for n, p in params.named_parameters() if split[n]
+                       is not None),
+           "whole": sum(named[n].numel() * named[n].element_size()
+                        for n in named if split[n] is not None),
+           "split": sum(d is not None for d in split.values())}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill = steps.make_prefill_step(cfg32, mesh=mesh)
+    prefill(params, inputs)
+    logits, ms, coll, _ = tp_clocked(lambda: prefill(params, inputs))
+    out["prefill"] = logits.float().cpu().numpy()
+    out["prefill_ms"], out["prefill_coll_ms"] = ms, coll
+    with torch.no_grad():
+        if cfg.is_encdec:
+            cache = fam.init_cache(cfg, 1, cache_len, ENC_FRAMES,
+                                   dtype=torch.bfloat16, device=dev,
+                                   mesh=mesh)
+            cache = fam.prefill_memory(steps._serve_whole(params, mesh), cfg,
+                                       cache, batch["embeds"])
+        else:
+            cache = fam.init_cache(cfg, 1, cache_len, dtype=torch.bfloat16,
+                                   device=dev, mesh=mesh)
+    out["cache"] = {k: list(v.shape) for k, v in flat_leaves(cache).items()}
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    toks = batch["tokens"]
+    ms_all, coll_all = [], []
+    for t in range(n_dec):
+        (logits, cache), ms, coll, _ = tp_clocked(
+            lambda: serve(params, cache, toks[:, t:t + 1], t))
+        out[f"step{t}"] = logits.float().cpu().numpy()
+        ms_all.append(ms)
+        coll_all.append(coll)
+    out["decode_ms"] = float(np.median(ms_all[1:]))
+    out["decode_coll_ms"] = float(np.median(coll_all[1:]))
+    del cache, params
+    torch.cuda.empty_cache()
+    opt_cfg = adamw.AdamWConfig(schedule=cfg.schedule, **MESH_ZERO_OPT)
+    state = {"params": model, "opt": adamw.init_state(model, opt_cfg)}
+    state = steps.shard_state(state, mesh,
+                              steps.train_state_shardings(mesh, state))
+    del model, named
+    step = steps.make_train_step(cfg32, opt_cfg, donate=True, mesh=mesh)
+    with update_turns(mesh) as turns:
+        (state, met), ms, coll, _ = tp_clocked(lambda: step(state, batch))
+    out["free_at_update"] = turns.get("free")
+    out["loss"], out["grad_norm"] = float(met["loss"]), float(
+        met["grad_norm"])
+    out["train_ms"], out["train_coll_ms"] = ms, coll
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    """A nested dict of tensors by dotted path."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        out.update(flat_leaves(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def tpf_worker(cfg_in, mesh, dev, pre) -> dict:
+    """Part 7's rank: ``tpf_run`` for each config its mesh runs, its arrays
+    written for the parent, its numbers in its report."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank = mesh.get_local_rank("model")
+    report = {}
+    for arch, changes in cfg_in["cases"]:
+        if cfg_in.get("stop"):          # rank 0 reads the flag for all
+            flag = torch.tensor([float(rank == 0 and os.path.exists(
+                cfg_in["stop"]))])
+            dist.broadcast(flag, src=0)
+            if flag.item():
+                break
+        cfg = family_cfg(arch, **changes)
+        t0 = time.perf_counter()
+        out = tpf_run(cfg, mesh, dev, tuple(cfg_in["mesh"]))
+        arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
+        np.savez(os.path.join(TPF_DIR, f"{arch}_r{rank}.npz"), **arrays)
+        say(f"{pre} {arch} steps {time.perf_counter() - t0:.1f} s")
+        report[arch] = {k: v for k, v in out.items() if k not in arrays}
+    return report
+
+
+def mesh_tpf(mesh, dev, archs, stop=None) -> list:
+    """Part 7: the cases of ``TPF_CASES`` of ``archs``, in their order, one
+    spawn per mesh: ``tpf_run`` here on the NCCL world-1 mesh for each of
+    the spawn's cases, then in gloo workers (``--mesh-worker tpf RANK``);
+    with ``stop`` (a file's path), no spawn starts and no worker begins a
+    case once that file exists.  Returns the archs whose cases ran.  Each
+    rank's f32 prefill logits
+    and loss and grad norm within ``TP_TOL["float32"]`` of world 1's
+    (max |d| / max |ref|), its bf16 decode logits within
+    ``TP_TOL["bfloat16"]``, the decode logits bitwise the same on every
+    rank of a mesh, the split leaves' bytes per rank 1/m of theirs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import tp_cache_layout, tp_layout
+    from repro_torch.dist.tensor_parallel import plan
+    by_arch = {c[0]: c for c in TPF_CASES}
+    cases_in = [by_arch[a] for a in archs]
+    os.makedirs(TPF_DIR, exist_ok=True)
+    wants, done = {}, []
+
+    def world1(arch, changes, shape):
+        cfg = family_cfg(arch, **changes)
+        s, cache_len, n_dec = tpf_shape(arch, shape)
+        tp, pm = plan(cfg, PlanMesh(shape)), PlanMesh(shape)
+        say(f"[mesh] part 7: {arch} at full width, "
+            + ", ".join(f"{k} {v} (of {getattr(get_config(arch), k)})"
+                        for k, v in changes.items())
+            + f"; on {shape}: attention {tp_layout(cfg, pm, s)}, cache "
+            f"{tp_cache_layout(cfg, pm)}, MLP split {tp.mlp}, SSD heads "
+            f"split {tp.ssd}, vocab split {tp.vocab}; (B, S) = (1, {s}), "
+            f"{n_dec} decode steps over a cache of {cache_len} positions")
+        t0 = time.perf_counter()
+        want = wants[arch] = tpf_run(cfg, mesh, dev, shape)
+        say(f"[mesh] part 7 {arch} world 1: prefill {want['prefill_ms']:.3f}"
+            f" ms, decode {want['decode_ms']:.3f} ms a step, train "
+            f"{want['train_ms']:.3f} ms (loss {want['loss']:.6f}, grad norm "
+            f"{want['grad_norm']:.6f}), peak {want['peak']:,} B; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    env = dict(os.environ)
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    bad = []
+    for shape in dict.fromkeys(c[2] for c in cases_in):
+        if stop and os.path.exists(stop):
+            break
+        cases = [(a, ch) for a, ch, sh in cases_in if sh == shape]
+        for arch, changes in cases:
+            world1(arch, changes, shape)
+        m = shape[1]
+        free, total = torch.cuda.mem_get_info()
+        say(f"[mesh] part 7: {free:,} of {total:,} B free on the card before "
+            f"the {shape} workers")
+        t0 = time.perf_counter()
+        reports = mesh_spawn("tpf", {"mesh": list(shape),
+                                     "store": f"tpf{m}_s", "cases": cases,
+                                     "stop": stop}, env=env, n=m)
+        for arch in [a for a, _ in cases if a in reports[0]]:
+            done.append(arch)
+            want = wants[arch]
+            _, _, n_dec = tpf_shape(arch, shape)
+            dec = [f"step{t}" for t in range(n_dec)]
+            got = [dict(np.load(os.path.join(TPF_DIR, f"{arch}_r{r}.npz")))
+                   for r in range(m)]
+            for r, arr in enumerate(got):
+                rep = reports[r][arch]
+                errs = {k: float(np.abs(arr[k] - want[k]).max()
+                                 / np.abs(want[k]).max())
+                        for k in ["prefill"] + dec}
+                worst = max(errs[k] for k in dec)
+                rel = {k: abs(rep[k] - want[k]) / abs(want[k])
+                       for k in ("loss", "grad_norm")}
+                share = {k: rep[f"{k}_coll_ms"] / rep[f"{k}_ms"]
+                         for k in ("prefill", "decode", "train")}
+                say(f"[mesh] part 7 {arch} {shape} rank {r}: split leaves "
+                    f"{rep['held']:,} B held against whole / m "
+                    f"{rep['whole'] / m:,.0f} B ({rep['split']} leaves); "
+                    f"cache blocks {rep['cache']}; prefill (f32) rel "
+                    f"{errs['prefill']:.3e}, decode (bf16) worst rel "
+                    f"{worst:.3e}; loss {rep['loss']:.6f} (rel "
+                    f"{rel['loss']:.3e}), grad norm rel "
+                    f"{rel['grad_norm']:.3e}; ms by CUDA events: prefill "
+                    f"{rep['prefill_ms']:.3f}, decode {rep['decode_ms']:.3f} "
+                    f"a step, train {rep['train_ms']:.3f} (the updates in "
+                    f"turns); share in collectives "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in share.items())
+                    + f"; peak {rep['peak']:,} B")
+                if errs["prefill"] > TP_TOL["float32"] or worst > \
+                        TP_TOL["bfloat16"] or max(rel.values()) > \
+                        TP_TOL["float32"]:
+                    bad.append((arch, shape, r, errs, rel))
+                if rep["held"] * m != rep["whole"]:
+                    bad.append((arch, shape, r, "bytes", rep["held"],
+                                rep["whole"]))
+                for k in ["prefill"] + dec:
+                    if not np.array_equal(arr[k], got[0][k]):
+                        bad.append((arch, shape, r, k, "differs from rank 0"))
+        say(f"[mesh] part 7 {shape}: {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"[mesh] part 7: {bad}")
+    return done
+
+
+class PlanMesh:
+    """Shape-only stand-in for a ``DeviceMesh`` of ``(data, model)``: what
+    ``tensor_parallel.plan`` reads to name a layout."""
+
+    def __init__(self, shape):
+        self.mesh_dim_names, self.shape = AXES, tuple(shape)
+
+
+def part6_and_part7(mesh, dev, archs) -> None:
+    """Part 6, then part 7's cases of ``archs`` while the main path has
+    not begun to wait for this process (``MAIN_WAITING``), in part 6's
+    process; the archs whose cases ran are written to ``TP_DIR/part7.json``
+    for the main path, which hands the rest to part 7's process."""
+    mesh_tp(mesh, dev)
+    done = mesh_tpf(mesh, dev, archs, stop=os.path.join(TP_DIR,
+                                                         MAIN_WAITING))
+    with open(os.path.join(TP_DIR, "part7.json"), "w") as f:
+        json.dump(done, f)
+
+
+def part7_left() -> tuple:
+    """The archs of part 7's cases that part 6's process did not run."""
+    path = os.path.join(TP_DIR, "part7.json")
+    done = json.load(open(path)) if os.path.isfile(path) else []
+    return tuple(a for a in TPF_WITH_PART6 + TPF_ALONE if a not in done)
+
+
+# the parts in processes of their own: (flag, the function it runs, its
+# files' directory, the host-bound window it runs beside, the archs of
+# part 7's cases it runs when the smoke starts it; alone, ``--tp-part``
+# runs these too and ``--tp-families`` all of TPF_CASES but for the
+# archs named after it)
+SIDE_PARTS = {"6": ("--tp-part", "part6_and_part7", TP_DIR,
+                    "NELL-2's host generation", TPF_WITH_PART6),
+              "7": ("--tp-families", "mesh_tpf", TPF_DIR,
+                    "[baselines]' host builds", TPF_ALONE)}
+
+
+def side_part(name: str, archs) -> int:
+    """``chip_smoke.py --tp-part`` (part 6, then part 7's cases of
+    ``archs``) or ``--tp-families`` (part 7's cases of ``archs``): the part
+    in a process of its own (NCCL world 1 on a (1, 1) mesh here, the gloo
+    workers below it), its lines to stdout; writes ``done.json`` in its
+    directory with its verdict."""
     import torch
     import torch.distributed as dist
     if not torch.cuda.is_available():
@@ -4954,14 +5282,15 @@ def tp_part() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.dist import make_mesh, set_mesh
+    _, fn, root, *_ = SIDE_PARTS[name]
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_num_threads(1)        # NELL-2's generation has the host
+    torch.set_num_threads(1)        # the host-bound phase has the host
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     verdict = {"ok": False}
-    os.makedirs(TP_DIR, exist_ok=True)
-    store = os.path.join(TP_DIR, "store1")
+    os.makedirs(root, exist_ok=True)
+    store = os.path.join(root, "store1")
     if os.path.exists(store):
         os.unlink(store)
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
@@ -4969,7 +5298,7 @@ def tp_part() -> int:
     try:
         mesh = make_mesh((1, 1))
         set_mesh(mesh)
-        mesh_tp(mesh, dev)
+        globals()[fn](mesh, dev, archs)
         verdict["ok"] = True
     except Exception as exc:                      # reported by [mesh]
         import traceback
@@ -4979,23 +5308,26 @@ def tp_part() -> int:
         set_mesh(None)
         dist.destroy_process_group()
         verdict["seconds"] = time.perf_counter() - t0
-        with open(os.path.join(TP_DIR, "done.json"), "w") as f:
+        with open(os.path.join(root, "done.json"), "w") as f:
             json.dump(verdict, f)
     return 0 if verdict["ok"] else 1
 
 
-def tp_part_start():
-    """Start part 6 (``--tp-part``) in its own process session, its output
-    to ``TP_DIR/part6.log``; killed with its workers at exit if still
-    running."""
+def side_part_start(name: str, archs=None):
+    """Start part ``name`` (``SIDE_PARTS``; part 7's cases of ``archs``,
+    its own by default) in its own process session, its output to
+    ``part<name>.log`` in its directory; killed with its workers at exit
+    if still running."""
     import signal
-    shutil.rmtree(TP_DIR, ignore_errors=True)
-    os.makedirs(TP_DIR)
+    flag, _, root, _, own = SIDE_PARTS[name]
+    archs = own if archs is None else archs
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
     env = dict(os.environ)
     env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    with open(os.path.join(TP_DIR, "part6.log"), "w") as log:
+    with open(os.path.join(root, f"part{name}.log"), "w") as log:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                 "--tp-part"], stdout=log,
+                                 flag, *archs], stdout=log,
                                 stderr=subprocess.STDOUT, env=env,
                                 start_new_session=True)
 
@@ -5004,14 +5336,18 @@ def tp_part_start():
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
     atexit.register(stop)
-    return {"proc": proc, "t0": time.perf_counter(), "stop": stop}
+    return {"name": name, "proc": proc, "t0": time.perf_counter(),
+            "stop": stop}
 
 
-def tp_part_wait(part) -> None:
-    """Wait for part 6's process (at most ``TP_TIMEOUT`` s from its
+def side_part_wait(part) -> None:
+    """Wait for a side part's process (at most ``TP_TIMEOUT`` s from its
     start): the card is its until then."""
     if part.get("waited") is not None:
         return
+    # the part starts nothing more that the main path would wait for
+    with open(os.path.join(SIDE_PARTS[part["name"]][2], MAIN_WAITING), "w"):
+        pass
     t0 = time.perf_counter()
     try:
         part["proc"].wait(timeout=max(1.0, TP_TIMEOUT - (
@@ -5019,32 +5355,36 @@ def tp_part_wait(part) -> None:
     except subprocess.TimeoutExpired:
         part["stop"]()
     part["waited"] = time.perf_counter() - t0
-    say(f"[mesh] part 6 ran beside NELL-2's host generation: "
+    say(f"[mesh] part {part['name']} ran beside "
+        f"{SIDE_PARTS[part['name']][3]}: "
         f"{time.perf_counter() - part['t0']:.1f} s, the main path waited "
         f"{part['waited']:.1f} s for it")
 
 
-def tp_part_report(part) -> None:
-    """``[mesh]`` part 6's lines, from its process; raises unless it
+def side_part_report(part) -> None:
+    """A side part's ``[mesh]`` lines, from its process; raises unless it
     passed."""
-    tp_part_wait(part)
-    with open(os.path.join(TP_DIR, "part6.log")) as f:
+    side_part_wait(part)
+    name = part["name"]
+    root = SIDE_PARTS[name][2]
+    with open(os.path.join(root, f"part{name}.log")) as f:
         for line in f.read().splitlines():
             say(line)
-    path = os.path.join(TP_DIR, "done.json")
+    path = os.path.join(root, "done.json")
     verdict = json.load(open(path)) if os.path.isfile(path) else {}
-    shutil.rmtree(TP_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     if not verdict.get("ok"):
-        raise AssertionError(f"[mesh] part 6 failed: {verdict}")
-    say(f"[mesh] part 6: {verdict['seconds']:.1f} s in its process")
+        raise AssertionError(f"[mesh] part {name} failed: {verdict}")
+    say(f"[mesh] part {name}: {verdict['seconds']:.1f} s in its process")
 
 
-def mesh_phase(dev, tp) -> None:
+def mesh_phase(dev, tp, tpf) -> None:
     """The ``[mesh]`` phase: parts 1-6 (see the module's docstring); the
     launcher (part 5) runs beside parts 1 and 3, and part 2's workers
     start once it has ended (they need most of the card).  Part 6 ran in
-    its own process ``tp`` (``tp_part_start``) beside NELL-2's host
-    generation; its lines are printed here."""
+    its own process (``side_part_start``) beside NELL-2's host
+    generation, part 7 beside ``[baselines]``' host builds; their lines
+    are printed here."""
     import torch
     import torch.distributed as dist
     from repro_torch.dist import make_mesh, set_mesh
@@ -5070,7 +5410,8 @@ def mesh_phase(dev, tp) -> None:
                                ("5", lambda: mesh_launcher(launcher,
                                                            t_phase)),
                                ("2 and 4", lambda: mesh_zero(mesh, dev)),
-                               ("6", lambda: tp_part_report(tp))):
+                               ("6", lambda: side_part_report(tp)),
+                               ("7", lambda: side_part_report(tpf))):
                 t0 = time.perf_counter()
                 part()
                 torch.cuda.empty_cache()
@@ -5452,8 +5793,10 @@ def main() -> int:
         return sharded_worker(int(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2], int(sys.argv[3]))
-    if sys.argv[1:2] == ["--tp-part"]:
-        return tp_part()
+    for name, (flag, *_, archs) in SIDE_PARTS.items():
+        if sys.argv[1:2] == [flag]:
+            return side_part(name, sys.argv[2:] or (
+                archs if name == "6" else [c[0] for c in TPF_CASES]))
     # the phases path allocates and frees tens of GB of (T, R) tensors of
     # several sizes per call; growable segments keep the cache from
     # fragmenting (read when the allocator starts, before any allocation)
@@ -5484,10 +5827,10 @@ def main() -> int:
     # [mesh] part 6 in its own process, beside NELL-2's host generation;
     # the first upload waits for it
     torch.cuda.empty_cache()
-    tp = tp_part_start()
+    tp = side_part_start("6")
     reset_launch_counts()
     runs = [run_tensor(name, dims, nnz, dev, before_upload=lambda:
-                       tp_part_wait(tp))
+                       side_part_wait(tp))
             for name, (dims, nnz) in TENSORS.items()]
     launches = dict(launch_counts)
     say(f"[main] kernel launches on the main path: {launches}")
@@ -5553,10 +5896,12 @@ def main() -> int:
     disk_timing(runs, dev)
     say(f"[disk] timing {time.perf_counter() - t_disk:.1f} s")
 
-    # the dry run's cells: host processes, read in [dryrun]
-    dryrun_procs = dryrun_cells()
     t_phase = time.perf_counter()
-    baselines_phase(runs, dev)
+    # [mesh] part 7 in its own process, beside the baselines' host builds;
+    # their first card work waits for it
+    torch.cuda.empty_cache()
+    tpf = side_part_start("7", part7_left())
+    baselines_phase(runs, dev, before_card=lambda: side_part_wait(tpf))
     say(f"[baselines] {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
@@ -5572,6 +5917,9 @@ def main() -> int:
     for v in FUSED:
         launches[v] += obs_launches[v]
     overhead_phase(runs[0])
+    # the dry run's cells: host processes, read in [dryrun] (after [obs],
+    # whose measured peaks host load would skew)
+    dryrun_procs = dryrun_cells()
     reset_launch_counts()
     service_launches = service_phase(runs, dev)
     say(f"[service] kernel launches through the service: {service_launches}")
@@ -5627,7 +5975,7 @@ def main() -> int:
         raise AssertionError(f"[families] launched {dict(launch_counts)}; "
                              f"these families run no kernel of this port")
     reset_launch_counts()
-    mesh_phase(dev, tp)
+    mesh_phase(dev, tp, tpf)
     say(f"[mesh] kernel launches of the phase: {dict(launch_counts)}")
     if any(launch_counts.values()):
         raise AssertionError(f"[mesh] launched {dict(launch_counts)}; the "

@@ -17,7 +17,6 @@ choose as the reference's anchors and ``cache_specs`` choose it.
 """
 from __future__ import annotations
 
-import math
 
 _MESH = None
 
@@ -72,41 +71,28 @@ def tp_layout(cfg, mesh, seq: int) -> str:
     heads divide the axis (``tensor_parallel.Plan.heads``), else
     ``"rows"`` (each rank its block of query rows against the whole K
     and V) where the rows do, else ``"whole"``.  ``"whole"`` too where
-    ``tensor_parallel.plan`` splits nothing."""
+    ``tensor_parallel.plan`` splits nothing or ``cfg`` has no
+    attention."""
     from .tensor_parallel import plan
     tp = plan(cfg, mesh)
-    if tp is None:
+    if tp is None or cfg.attention == "none":
         return "whole"
     if tp.heads:
         return "heads"
     return "rows" if seq % tp.size == 0 else "whole"
 
 
-def tp_cache_layout(cfg, mesh, *, batch: int, seq: int) -> str:
-    """The decode cache's block over ``model``, as the reference's
-    ``cache_specs`` splits a (L, B, S, KV, hd) cache of ``batch`` rows
-    (the global batch) and ``seq`` positions: ``tensor_parallel.Plan``'s
-    ``cache``, ``"heads"`` or ``"head_dim"``; where neither divides,
-    ``"whole"`` where the reference leaves ``model`` off the cache (the
-    data axes took the KV length, the batch not dividing them, or the
-    length does not divide ``model``); ``"whole"`` too where ``plan``
-    splits nothing.  The reference's third layout, the KV length over
-    ``model``, is not built: a cache that reaches it raises (ROADMAP item
-    13.7)."""
-    from .sharding import fsdp_axes
+def tp_cache_layout(cfg, mesh) -> str:
+    """The attention cache's block over ``model``, as the reference's
+    ``cache_specs`` splits it: ``tensor_parallel.Plan``'s ``cache`` (the
+    KV heads, ``head_dim``, the KV length, or MLA's latent and rope
+    dims), ``"whole"`` where ``plan`` splits nothing.  The KV-length
+    block is always this rank's: ``ceil(S / m)`` positions from ``rank *
+    ceil(S / m)``, also where the reference leaves ``model`` off the
+    cache (a length the axis does not divide, or the data axes taking
+    the length of a batch they do not divide: the port keeps no
+    sequence-parallel cache over the data axes), so a decode step reads
+    its block's first position from its length alone."""
     from .tensor_parallel import plan
     tp = plan(cfg, mesh)
-    if tp is None:
-        return "whole"
-    if tp.cache != "length":
-        return tp.cache
-    m = tp.size
-    sizes = dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
-    dps = math.prod(sizes[a] for a in fsdp_axes(mesh))
-    if (batch % dps != 0 and seq % dps == 0) or seq % m != 0:
-        return "whole"
-    raise ValueError(
-        f"{cfg.name}: neither its {cfg.num_kv_heads} KV heads nor its "
-        f"head_dim {cfg.head_dim} divide the model axis of {m}; the "
-        f"reference splits the decode cache's KV length there, a layout "
-        f"the port does not build yet (ROADMAP item 13.7)")
+    return "whole" if tp is None else tp.cache

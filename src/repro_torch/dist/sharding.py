@@ -219,12 +219,21 @@ def gather(t):
 
 # the leaves a tensor-parallel rank splits, by state-dict name: (the
 # reference's anchor the split follows, the dim of this rank's block)
+_LAYER = r"^(dense_layers|moe_layers|enc_layers|dec_layers)\.\d+\."
+_ATTN = r"(" + _LAYER + r"(attn|xattn)|^shared_attn\.attn)\."
+_MLP = r"(" + _LAYER + r"|^shared_attn\.)mlp\."
+_SSD = r"^(ssm_layers|pre_layers|group_layers)\.\d+\.(\d+\.)?mamba\."
 _TP_LEAVES = (
-    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.w[qkv]\.w$"), 1),
-    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.w[qkv]\.b$"), 0),
-    ("heads", re.compile(r"^(dense|moe)_layers\.\d+\.attn\.wo\.w$"), 0),
-    ("mlp", re.compile(r"^dense_layers\.\d+\.mlp\.w[ig]\.w$"), 1),
-    ("mlp", re.compile(r"^dense_layers\.\d+\.mlp\.wo\.w$"), 0),
+    ("heads", re.compile(_ATTN + r"w(q|k|v|uq)\.w$"), 1),
+    ("heads", re.compile(_ATTN + r"w[qkv]\.b$"), 0),
+    ("heads", re.compile(_ATTN + r"wo\.w$"), 0),
+    ("heads", re.compile(r"^site_lora\.\d+\.[qkv]\.b$"), 1),
+    ("latent", re.compile(_LAYER + r"attn\.wu[kv]\.w$"), 1),
+    ("mlp", re.compile(_MLP + r"w[ig]\.w$"), 1),
+    ("mlp", re.compile(_MLP + r"wo\.w$"), 0),
+    ("ssd", re.compile(_SSD + r"(A_log|D|dt_bias|norm\.scale|out_proj\.w)$"),
+     0),
+    ("experts", re.compile(r"^moe_layers\.\d+\.moe\.w[igo]\.w$"), 0),
     ("vocab", re.compile(r"^lm_head\.w$"), 1),
     ("table", re.compile(r"^embed\.table$"), 0),
 )
@@ -236,25 +245,40 @@ def tp_blocks(named: dict, cfg, mesh, *, mode: str = "serve") -> dict:
     ``chunk(m, dim)[model rank]``), ``None`` for a leaf it computes with
     whole.  Shape-only: ``mesh`` needs its axis names and extents.
 
-    * ``wq``, ``wk``, ``wv`` (and their biases) by columns, in KV-head
-      groups, and the attention's ``wo`` by rows, where the KV heads
-      divide the axis (the ``"heads"`` layout); in the ``"rows"`` layout
-      the four are whole;
-    * the MLP's ``wi`` and ``wg`` by columns and its ``wo`` by rows;
+    * the attentions' ``wq``, ``wk``, ``wv`` (and their biases; MLA's
+      ``wuq``; the enc-dec's cross-attention; the hybrid's shared block
+      and each site's LoRA ``b``) by columns, in KV-head groups, and
+      their ``wo`` by rows, where the KV heads divide the axis (the
+      ``"heads"`` layout); in the ``"rows"`` layout they are whole, and
+      so is each site's LoRA ``a``;
+    * MLA's ``wuk`` and ``wuv`` by head columns in training; a serving
+      rank holds them whole (design (a)): its prefill takes their head
+      columns and its absorbed decode their latent rows, views of one
+      tensor, where head blocks would need ``q_eff`` and ``ctx``
+      exchanged over ``model`` in every decode step;
+    * the MLPs' ``wi`` and ``wg`` by columns and their ``wo`` by rows;
+    * the SSD's ``A_log``, ``D``, ``dt_bias`` and norm scale on this
+      rank's heads and ``out_proj`` by rows, where the heads divide the
+      axis; the fused ``in_proj`` and the conv stay whole (their
+      ``[z | x | B | C | dt]`` segments are no one block per rank, and
+      every rank reads all of B and C: ``ssm._tp_projections``);
+    * the routed experts' stacks (E, ., .) on their expert dim: this
+      rank's E / m experts, as ``moe_apply_sharded`` runs them;
     * ``lm_head`` by vocab columns; ``embed.table`` by vocab rows when
       serving (a vocab-parallel lookup, and the tied head), whole in
       training, where the lookup reads it whole and the tied head takes
       its rows (``tensor_parallel.scatter``);
-    * everything else whole: the norms, ``frontend_proj``, the router and
-      the routed experts (which ``moe_apply_sharded`` splits itself), and
-      every leaf of a family outside ``tensor_parallel.TP_FAMILIES``."""
+    * everything else whole: the norms, ``frontend_proj``, MLA's ``wdq``,
+      ``wdkv`` and ``wkr``, the router and the shared experts."""
     from .tensor_parallel import plan
     tp = plan(cfg, mesh)
     out = dict.fromkeys(named)
     if tp is None:
         return out
-    split = {"heads": tp.heads, "mlp": tp.mlp, "vocab": tp.vocab,
-             "table": mode == "serve" and tp.vocab}
+    split = {"heads": tp.heads, "latent": tp.heads and mode == "train",
+             "mlp": tp.mlp, "ssd": tp.ssd, "vocab": tp.vocab,
+             "table": mode == "serve" and tp.vocab,
+             "experts": bool(cfg.moe) and cfg.num_experts % tp.size == 0}
     for name in named:
         for anchor, pattern, dim in _TP_LEAVES:
             if split[anchor] and pattern.match(name):

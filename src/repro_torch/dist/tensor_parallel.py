@@ -20,9 +20,9 @@ the collectives that layout implies, as Megatron writes them:
   backward (a whole weight used as its block, the tied table's head).
 
 Each is the exact identity, with no collective, on a ``model`` axis of
-size 1.  ``plan`` decides what a config splits on a mesh; the families
-out of scope (``TP_FAMILIES``: MLA, the SSD, the hybrid's shared block
-and the enc-dec) run whole on every model rank, as before.
+size 1.  ``plan`` decides what a config splits on a mesh, for every
+family: the attention (GQA, MLA, the hybrid's shared block, the
+enc-dec's three), the MLP's hidden, the SSD's heads and the vocab.
 """
 from __future__ import annotations
 
@@ -31,11 +31,6 @@ import functools
 
 import torch
 import torch.distributed as dist
-
-# the (family, attention) pairs whose layers split over ``model``: the
-# dense, vlm and GQA MoE families; every other runs whole on each rank
-TP_FAMILIES = frozenset({("dense", "gqa"), ("vlm", "gqa"), ("moe", "gqa")})
-
 
 def tp_size(mesh) -> int:
     """The extent of ``mesh``'s ``model`` axis (1 without one)."""
@@ -56,26 +51,24 @@ def tp_group(mesh):
     return mesh.get_group("model")
 
 
-def in_scope(cfg) -> bool:
-    """Whether ``cfg``'s layers split over ``model`` (``TP_FAMILIES``)."""
-    return (cfg.family, cfg.attention) in TP_FAMILIES
-
-
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """What a config splits on a mesh: the one place the split is decided.
-    ``heads``: the attention's KV heads divide the axis (the ``"heads"``
-    layout, else query rows or whole, ``context.tp_layout``); ``mlp``:
-    the MLP's hidden does; ``vocab``: the padded vocab of the head and the
-    table does; ``cache``: the decode cache's block as the reference's
-    ``cache_specs`` picks it, ``"heads"``, ``"head_dim"``, or ``"length"``
-    where neither divides (``context.tp_cache_layout`` says whether the
-    cache is then whole or refused).  Shape-only: ``rank`` and ``group``
-    ask the mesh when first read."""
+    ``heads``: the attention's KV heads (MLA's heads) divide the axis (the
+    ``"heads"`` layout, else query rows or whole, ``context.tp_layout``);
+    ``mlp``: the MLP's hidden does; ``ssd``: the SSD's heads do; ``vocab``:
+    the padded vocab of the head and the table does; ``cache``: the
+    attention cache's block as the reference's ``cache_specs`` picks it,
+    ``"heads"``, ``"head_dim"``, or ``"length"`` (the rank's block of
+    positions) where neither divides, ``"latent"`` for MLA's (the last dim
+    of ``ckv`` and of ``kr``, each where it divides), ``"whole"`` without
+    attention.  Shape-only: ``rank`` and ``group`` ask the mesh when first
+    read."""
     mesh: object
     size: int
     heads: bool
     mlp: bool
+    ssd: bool
     vocab: bool
     cache: str
 
@@ -94,19 +87,25 @@ class Plan:
 
 def plan(cfg, mesh=None):
     """The ``Plan`` of ``cfg`` on ``mesh`` (the installed one by default),
-    or ``None`` where nothing splits: no mesh, a ``model`` axis of 1, or
-    a family out of ``TP_FAMILIES``."""
+    or ``None`` where nothing splits: no mesh, or a ``model`` axis of 1."""
     if mesh is None:
         from .context import get_mesh
         mesh = get_mesh()
     m = tp_size(mesh)
-    if m == 1 or not in_scope(cfg):
+    if m == 1:
         return None
-    heads = cfg.num_kv_heads % m == 0
-    cache = ("heads" if heads else
-             "head_dim" if cfg.head_dim % m == 0 else "length")
+    if cfg.attention == "none":
+        heads, cache = False, "whole"
+    elif cfg.attention == "mla":
+        # MHA: _attn_constrain reads the heads of a (B, S, H, 1, hd) query
+        heads, cache = cfg.num_heads % m == 0, "latent"
+    else:
+        heads = cfg.num_kv_heads % m == 0
+        cache = ("heads" if heads else
+                 "head_dim" if cfg.head_dim % m == 0 else "length")
+    ssd = cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m == 0
     return Plan(mesh=mesh, size=m, heads=heads, mlp=cfg.d_ff % m == 0,
-                vocab=cfg.padded_vocab % m == 0, cache=cache)
+                ssd=ssd, vocab=cfg.padded_vocab % m == 0, cache=cache)
 
 
 def all_gather(x, dim: int, tp):
@@ -203,6 +202,13 @@ def scatter(x, dim: int, tp):
     if tp is None or tp.size == 1:
         return x
     return _Scatter.apply(x, dim, tp)
+
+
+def reduce_sum(x, tp):
+    """The sum over ``tp``'s group forward and backward: a sum that each
+    rank consumes in its own per-rank code (the gated norm's sum of
+    squares over the SSD's channels), whose gradient is the ranks' sum."""
+    return copy_in(reduce_out(x, tp), tp)
 
 
 def all_max(x, tp):

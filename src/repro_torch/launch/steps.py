@@ -37,7 +37,6 @@ per-rank step with this rank's blocks of its arguments, which
 from __future__ import annotations
 
 import math
-import re
 
 import torch
 import torch.distributed as dist
@@ -133,15 +132,13 @@ def batch_specs(cfg, shape_name: str, mesh, *, device="meta"):
     return {"tokens": tok, "pos": pos}, {"tokens": tok_shard, "pos": ()}
 
 
-def _init_cache(cfg, b: int, s: int, device, mesh=None, global_batch=None):
+def _init_cache(cfg, b: int, s: int, device, mesh=None):
     """The decode cache of ``b`` rows and ``s`` positions: the global one,
-    or with ``mesh`` this rank's block over ``model`` (of a global batch
-    of ``global_batch`` rows)."""
+    or with ``mesh`` this rank's block over ``model``."""
     fam = model_mod.family(cfg)
     if cfg.is_encdec:
-        return fam.init_cache(cfg, b, s, ENC_LEN, device=device)
-    return fam.init_cache(cfg, b, s, device=device, mesh=mesh,
-                          global_batch=global_batch)
+        return fam.init_cache(cfg, b, s, ENC_LEN, device=device, mesh=mesh)
+    return fam.init_cache(cfg, b, s, device=device, mesh=mesh)
 
 
 def cache_specs(cfg, shape_name: str, mesh):
@@ -468,7 +465,10 @@ def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
             if n_dp > 1:
                 dist.all_reduce(g, group=dp_group)
                 g.div_(n_dp)
-            blocks[n] = shd.block(g, mesh, p.placements)
+            # a copy of this rank's block, so the whole gradient can go
+            # before the next leaf's (a view would keep every leaf's whole)
+            blk = shd.block(g, mesh, p.placements)
+            blocks[n] = blk if blk.numel() == g.numel() else blk.clone()
         del grads, whole
         opt = {k: v if k in ("step", "v_scale") else
                {n: local(t) for n, t in v.items()}
@@ -496,37 +496,21 @@ def _sharded_step(cfg, opt_cfg, fam, donate, mesh):
     return train_step
 
 
-# the routed experts' stacked weights (E, ., .), which a serving rank keeps
-# as its own E / tp block
-_EXPERT = re.compile(r"(^|\.)moe\.w[igo]\.w$")
-
-
 def serve_layout(mesh, named: dict, cfg) -> dict:
     """``{state-dict name: spec}`` of what a serving rank holds: the
-    reference's serve-mode spec (``param_shardings(mode="serve")``), but a
-    routed expert stack split on its expert dim over ``model`` (this
-    rank's E / tp experts, as ``moe_apply_sharded`` runs them).
-
-    Where the ``model`` axis splits ``cfg`` the rank holds what it
-    computes with: ``tp_blocks``' blocks over ``model`` (the same bytes as
-    the reference's serve-mode block wherever both split a leaf over
-    ``model``) and every other leaf whole, replicated, so that no step
-    gathers a weight; the reference splits those over ``model`` or the
-    data axes and gathers them as the step needs them."""
-    if tpar.plan(cfg, mesh) is not None:
-        specs = {}
-        for n, d in shd.tp_blocks(named, cfg, mesh, mode="serve").items():
-            if _EXPERT.search(n):
-                d = 0
-            specs[n] = () if d is None else tuple(
+    reference's serve-mode spec (``param_shardings(mode="serve")``) on a
+    ``model`` axis of 1.  Above 1 the rank holds what it computes with:
+    ``tp_blocks``' blocks over ``model`` (the routed experts its E / m,
+    as ``moe_apply_sharded`` runs them; the same bytes as the reference's
+    serve-mode block wherever both split a leaf over ``model``) and every
+    other leaf whole, replicated, so that no step gathers a weight; the
+    reference splits those over ``model`` or the data axes and gathers
+    them as the step needs them."""
+    if tpar.plan(cfg, mesh) is None:
+        return shd.param_shardings(mesh, named, mode="serve")
+    return {n: () if d is None else tuple(
                 "model" if i == d else None for i in range(named[n].dim()))
-        return specs
-    specs = shd.param_shardings(mesh, named, mode="serve")
-    if shd.axis_sizes(mesh).get("model", 1) > 1:
-        for n in specs:
-            if _EXPERT.search(n):
-                specs[n] = ("model",) + (None,) * (named[n].dim() - 1)
-    return specs
+            for n, d in shd.tp_blocks(named, cfg, mesh, mode="serve").items()}
 
 
 def shard_serve_params(model, mesh):
@@ -540,20 +524,18 @@ def shard_serve_params(model, mesh):
 
 
 def _serve_whole(params, mesh):
-    """The model a serving rank runs: each parameter gathered whole
-    (``sharding.gather``) but the routed experts on a ``model`` axis
-    above 1, which stay this rank's block (``serve_layout``).  Where the
-    ``model`` axis splits the config, each parameter is the rank's own
-    block or whole copy, and nothing is gathered."""
+    """The model a serving rank runs: on a ``model`` axis of 1 each
+    parameter gathered whole over the data axes (``sharding.gather``);
+    above 1 each is the rank's own block or whole copy
+    (``serve_layout``), and nothing is gathered."""
     from torch.distributed.tensor import DTensor
     if dist_context.get_mesh() is not mesh:
         raise ValueError("the per-rank serving steps run under their mesh: "
                          "repro_torch.dist.set_mesh(mesh) first")
     held = tpar.plan(params.cfg, mesh) is not None
-    split = shd.axis_sizes(mesh).get("model", 1) > 1
     tensors = {}
     for n, p in _named(params).items():
-        if held or split and isinstance(p, DTensor) and _EXPERT.search(n):
+        if held:
             tensors[n] = (p.to_local() if isinstance(p, DTensor)
                           else p).detach()
         else:
@@ -664,7 +646,7 @@ def build_cell(cfg, shape_name: str, mesh, *,
     # decode
     dps = _dp_size(mesh)
     rows = b // dps if b % dps == 0 else b
-    cache = _init_cache(cfg, rows, info["seq"], device, mesh, b)
+    cache = _init_cache(cfg, rows, info["seq"], device, mesh)
     cache_sh = _cache_shardings(mesh, cache_specs(cfg, shape_name, mesh)[0],
                                 b)
     fn = make_serve_step(cfg, mesh=mesh)

@@ -23,8 +23,10 @@ methods call them with its own config.  The reference's ``constrain``
 anchors stand at its sites (``repro_torch.dist.constrain``: per-rank code,
 so they return their input); under a mesh whose ``model`` axis splits the
 config (``dist.tensor_parallel.plan``) the layers compute with this
-rank's blocks where the anchors split them: the attention (``attention``),
-the MLP's hidden, the vocab of the head (``forward`` returns this rank's
+rank's blocks where the anchors split them: the attention (``attention``;
+the hybrid's shared block through the same code, its per-site LoRA
+carried by the projections), the SSD's heads (``ssm``), the MLP's hidden,
+the vocab of the head (``forward`` returns this rank's
 vocab block of the logits, ``parallel_cross_entropy`` reduces over the
 blocks) and of the table when serving holds its block, and the decode
 cache (``init_cache(mesh=)``).  Training's loss is here too
@@ -39,7 +41,9 @@ paper's sort+segment conflict resolution on the embedding-gradient MTTKRP
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import types
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +52,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.embed_grad import embedding_lookup
 from repro_torch.dist import tensor_parallel as tpar
-from repro_torch.dist.context import constrain, tp_cache_layout
+from repro_torch.dist.context import constrain, get_mesh, tp_cache_layout
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -147,10 +151,6 @@ def _lora_init(generator, d_in, d_out, rank, dtype, device=None) -> nn.Module:
     return p
 
 
-def _lora_apply(p, x):
-    return torch.matmul(torch.matmul(x, p.a.to(x.dtype)), p.b.to(x.dtype))
-
-
 def shared_attn_init(generator, cfg, dtype, device=None) -> nn.Module:
     """The one shared transformer block of zamba2 (attn + mlp)."""
     p = nn.Module()
@@ -171,64 +171,47 @@ def site_lora_init(generator, cfg, dtype, device=None) -> nn.Module:
     return p
 
 
-def _site_qkv(p, lora, cfg, h):
-    """The shared projections plus this site's LoRA deltas, split in
-    heads: q (B,S,H,hd), k and v (B,S,KV,hd)."""
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b, s, _ = h.shape
-    q = (linear(p.wq, h) + _lora_apply(lora.q, h)).reshape(b, s, nh, hd)
-    k = (linear(p.wk, h) + _lora_apply(lora.k, h)).reshape(b, s, kvh, hd)
-    v = (linear(p.wv, h) + _lora_apply(lora.v, h)).reshape(b, s, kvh, hd)
-    return q, k, v
+def _site_qkv(p, lora):
+    """The shared attention's projections with this site's LoRA deltas
+    (``attention._project``): ``wq``, ``wk``, ``wv`` each carrying its
+    ``(a, b)``, ``wo`` and the rotary frequencies the shared block's."""
+    def proj(lin, lo):
+        out = types.SimpleNamespace(w=lin.w, lora=(lo.a, lo.b))
+        if hasattr(lin, "b"):
+            out.b = lin.b
+        return out
+    return types.SimpleNamespace(wq=proj(p.wq, lora.q), wk=proj(p.wk, lora.k),
+                                 wv=proj(p.wv, lora.v), wo=p.wo,
+                                 freqs=p.freqs)
+
+
+def _no_window(cfg):
+    """The shared block attends every earlier position, as the
+    reference's passes no window."""
+    return cfg if cfg.sliding_window is None else dataclasses.replace(
+        cfg, sliding_window=None)
 
 
 def shared_attn_apply(shared, lora, cfg, x, positions, *, impl):
-    """Shared block with per-site LoRA deltas on q/k/v projections."""
+    """Shared block with per-site LoRA deltas on q/k/v projections: the
+    GQA attention (``attention.gqa_apply``, its layouts over ``model``
+    included) over the shared weights plus this site's deltas, then the
+    shared MLP."""
     h = rmsnorm(shared.ln1, x, cfg.norm_eps)
-    p = shared.attn
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b, s, _ = h.shape
-    q, k, v = _site_qkv(p, lora, cfg, h)
-    cos, sin = attn.rope_angles(positions, p.freqs)
-    q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
-    k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
-    q = q.reshape(b, s, kvh, nh // kvh, hd)
-    q, k, v = attn._attn_constrain(q, k, v)
-    if impl == "chunked":
-        out = attn._chunked_attn(q, k, v, offset=0, window=None)
-    else:
-        out = attn._full_attn(q, k, v,
-                              attn._causal_mask(s, s, 0, None, x.device))
-    x = x + linear(p.wo, out.reshape(b, s, nh * hd))
+    x = x + attn.gqa_apply(_site_qkv(shared.attn, lora), _no_window(cfg), h,
+                           positions=positions, impl=impl)
     h2 = rmsnorm(shared.ln2, x, cfg.norm_eps)
     return x + mlp_apply(shared.mlp, cfg, h2)
 
 
 def _shared_attn_decode(shared, lora, cfg, h, ck, cv, pos: int):
-    """The shared block at one decode position, this site's LoRA folded
-    into the shared projections; writes k and v at ``pos`` into this
-    site's cache views in place."""
+    """The shared block at one decode position, this site's LoRA added to
+    the shared projections (``attention.gqa_decode``); writes k and v at
+    ``pos`` into this site's cache views in place."""
     hh = rmsnorm(shared.ln1, h, cfg.norm_eps)
-    sp = shared.attn
-    b_ = hh.shape[0]
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _site_qkv(sp, lora, cfg, hh)
-    position = torch.full((1,), pos, dtype=torch.float32, device=h.device)
-    cos, sin = attn.rope_angles(position, sp.freqs)
-    q = attn.apply_rope(q, cos[None, :, None], sin[None, :, None])
-    k = attn.apply_rope(k, cos[None, :, None], sin[None, :, None])
-    ck[:, pos].copy_(k[:, 0])
-    cv[:, pos].copy_(v[:, 0])
-    s_ = ck.shape[1]
-    q5 = q.reshape(b_, 1, kvh, nh // kvh, hd)
-    scores = attn._einsum("bqkgh,bskh->bkgqs", q5, ck).to(torch.float32)
-    scores = scores * (hd ** -0.5)
-    valid = torch.arange(s_, device=h.device)[None, None, None, None, :] \
-        <= pos
-    scores = torch.where(valid, scores, attn.NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(h.dtype)
-    o = attn._einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b_, 1, nh * hd)
-    h = h + linear(sp.wo, o)
+    a, _, _ = attn.gqa_decode(_site_qkv(shared.attn, lora), _no_window(cfg),
+                              hh, ck, cv, pos)
+    h = h + a
     hh = rmsnorm(shared.ln2, h, cfg.norm_eps)
     return h + mlp_apply(shared.mlp, cfg, hh)
 
@@ -300,7 +283,7 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         return init_cache(self.cfg, batch, max_len, dtype,
-                          device=self.embed.table.device)
+                          device=self.embed.table.device, mesh=get_mesh())
 
     def decode_step(self, cache, tokens, pos: int):
         return decode_step(self, self.cfg, cache, tokens, pos)
@@ -356,19 +339,22 @@ def _remat(fn, cfg):
 
 def _embed_in(p, cfg, batch, compute_dtype):
     if cfg.input_mode == "embeddings":
-        x = linear(p.frontend_proj, batch["embeds"].to(compute_dtype))
+        return linear(p.frontend_proj, batch["embeds"].to(compute_dtype))
+    return token_embeds(p.embed.table, batch["tokens"], cfg, compute_dtype)
+
+
+def token_embeds(table, tokens, cfg, compute_dtype):
+    """The tokens' rows of ``table`` scaled by sqrt(d_model): a lookup over
+    this rank's block of vocab rows where a serving rank holds it
+    (``_vocab_parallel_lookup``)."""
+    tp = _vocab_plan(cfg)
+    if tp is not None and table.shape[0] != cfg.padded_vocab:
+        x = _vocab_parallel_lookup(table, tokens, cfg, compute_dtype, tp)
     else:
-        tp = _vocab_plan(cfg)
-        if tp is not None and p.embed.table.shape[0] != cfg.padded_vocab:
-            x = _vocab_parallel_lookup(p.embed.table, batch["tokens"], cfg,
-                                       compute_dtype, tp)
-        else:
-            x = embedding_lookup(p.embed.table, batch["tokens"],
-                                 cfg.embed_grad).to(compute_dtype)
-        # the reference scales by a weakly typed Python float, which JAX
-        # rounds to the compute dtype before the product
-        x = x * _rounded(cfg.d_model ** 0.5, compute_dtype)
-    return x
+        x = embedding_lookup(table, tokens, cfg.embed_grad).to(compute_dtype)
+    # the reference scales by a weakly typed Python float, which JAX
+    # rounds to the compute dtype before the product
+    return x * _rounded(cfg.d_model ** 0.5, compute_dtype)
 
 
 def _vocab_plan(cfg):
@@ -517,46 +503,61 @@ def loss_fn(params, cfg, batch):
 
 # ------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device=None, mesh=None, global_batch=None):
+               device=None, mesh=None):
     """The decode cache, zeroed: per layer k and v (or MLA's compressed
     ckv and kr) of ``max_len`` positions in ``dtype``, the SSM layers'
     f32 conv ring and state, the hybrid's per-site k and v.  With a
-    ``mesh`` whose ``model`` axis splits the config, k and v are this
-    rank's block: its KV heads or its slice of ``head_dim``, or the whole
-    cache where the reference leaves ``model`` off it
-    (``dist.context.tp_cache_layout`` of ``global_batch`` rows, ``batch``
-    by default; shape-only, no process group)."""
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
-
+    ``mesh`` whose ``model`` axis splits the config, each leaf is this
+    rank's block as the reference's ``cache_specs`` splits it
+    (``attention_cache``, ``ssm.mamba2_decode_init``; shape-only, no
+    process group)."""
     def states(*lead):
-        st = ssm_mod.mamba2_decode_init(cfg, batch, device=device)
+        st = ssm_mod.mamba2_decode_init(cfg, batch, device=device, mesh=mesh)
         return {k: v.expand(lead + v.shape).contiguous()
                 for k, v in st.items()}
 
     if cfg.family in ("dense", "moe", "vlm"):
         L = cfg.num_layers
         if cfg.attention == "mla":
-            return {"ckv": zeros(L, batch, max_len, cfg.kv_lora_rank),
-                    "kr": zeros(L, batch, max_len, cfg.rope_head_dim)}
-        kvh, hd = cfg.num_kv_heads, cfg.head_dim
-        layout = "whole" if mesh is None else tp_cache_layout(
-            cfg, mesh, batch=global_batch or batch, seq=max_len)
-        if layout == "heads":
-            kvh //= tpar.tp_size(mesh)
-        elif layout == "head_dim":
-            hd //= tpar.tp_size(mesh)
-        shape = (L, batch, max_len, kvh, hd)
-        return {"k": zeros(*shape), "v": zeros(*shape)}
+            m = tpar.tp_size(mesh)
+            lora, rope = cfg.kv_lora_rank, cfg.rope_head_dim
+            if m > 1:
+                lora = lora // m if lora % m == 0 else lora
+                rope = rope // m if rope % m == 0 else rope
+            return {"ckv": torch.zeros((L, batch, max_len, lora),
+                                       dtype=dtype, device=device),
+                    "kr": torch.zeros((L, batch, max_len, rope),
+                                      dtype=dtype, device=device)}
+        shape = attention_cache(cfg, (L, batch), max_len, mesh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if cfg.family == "ssm":
         return {"ssm": states(cfg.num_layers)}
     if cfg.family == "hybrid":
         pre, groups, per = hybrid_group_counts(cfg)
-        shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = attention_cache(cfg, (groups, batch), max_len, mesh)
         return {"pre": states(pre) if pre else {},
                 "groups": states(groups, per),
-                "attn_k": zeros(*shape), "attn_v": zeros(*shape)}
+                "attn_k": torch.zeros(shape, dtype=dtype, device=device),
+                "attn_v": torch.zeros(shape, dtype=dtype, device=device)}
     raise ValueError(cfg.family)
+
+
+def attention_cache(cfg, lead: tuple, length: int, mesh=None) -> tuple:
+    """The shape of a (lead..., S, KV, hd) k or v cache of ``length``
+    positions: whole, or with ``mesh`` this rank's block over ``model``
+    (``dist.context.tp_cache_layout``): its KV heads, its slice of
+    ``head_dim``, or its ``ceil(S / m)`` positions."""
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    layout = "whole" if mesh is None else tp_cache_layout(cfg, mesh)
+    m = tpar.tp_size(mesh)
+    if layout == "heads":
+        kvh //= m
+    elif layout == "head_dim":
+        hd //= m
+    elif layout == "length":
+        length = -(-length // m)
+    return tuple(lead) + (length, kvh, hd)
 
 
 def _at(states: dict, index) -> dict:

@@ -95,10 +95,12 @@ DIFFERENCES = {
                          "layout tp_layout chooses and calls the "
                          "collectives of dist/tensor_parallel.py, the "
                          "port's stand-in for GSPMD",
-        "def tp_cache_layout": "the reference's third cache layout, the KV "
-                               "length over model, is refused with a "
-                               "ValueError naming ROADMAP item 13.7, not "
-                               "run whole",
+        "def tp_cache_layout": "the cache block a rank holds over model, "
+                               "read by the per-rank decode: the KV "
+                               "length's block is ceil(S / m) positions "
+                               "also where the reference leaves model "
+                               "off the cache (no sequence-parallel "
+                               "cache over the data axes in the port)",
     },
     "launch/roofline.py": {
         "989.4e12": "the H100 SXM's bf16 peak in place of the v5e's 197e12",
@@ -116,10 +118,10 @@ DIFFERENCES = {
                                   "the anchors' dims and every other leaf "
                                   "whole, so no step gathers a weight (the "
                                   "reference splits the rest over model or "
-                                  "data and gathers as it needs); else it "
-                                  "gathers every parameter whole from its "
-                                  "serve-mode spec, the routed experts kept "
-                                  "as its E / tp block",
+                                  "data and gathers as it needs), the routed "
+                                  "experts its E / tp block; on a model axis "
+                                  "of 1 it gathers every parameter whole "
+                                  "from its serve-mode spec",
         "def _rows": "a serving rank runs its rows of the batch where they "
                      "divide over the data axes, else the whole batch",
         "rows = b // dps": "the decode cache is the rank's rows (the whole "

@@ -53,12 +53,14 @@ DIFFERENCES = [
      "across jax releases; the port's meshes are DeviceMeshes over the "
      "default process group (repro_torch.dist.make_mesh) and its SPMD "
      "code is per-rank"),
-    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/encdec.py",
-     "TP_FAMILIES", "port",
-     "the enc-dec is outside tensor_parallel.TP_FAMILIES: under a mesh "
-     "its encoder, decoder and logits run whole on every model rank, "
-     "where GSPMD splits the logits' vocab at encdec.py's anchor "
-     "(ROADMAP item 13.7)"),
+    ("src/repro_torch/models/encdec.py", "src/repro/models/encdec.py",
+     "_mem_block", "port",
+     "prefill_memory fills this rank's block of the memory's k and v "
+     "(its KV heads, head_dim slice or positions) and the decode's "
+     "cross-attention reads it (_cross_decode); in the KV-length layout "
+     "a memory whose length the model axis does not divide is held as "
+     "blocks of ceil(S / m) positions, the last shorter or empty, where "
+     "the reference's cache_specs leave such a memory whole"),
 ]
 
 

@@ -61,13 +61,10 @@ DIFFERENCES = [
      "jax.checkpoint around its scan's group body"),
     ("src/repro_torch/models/transformer.py",
      "src/repro/models/transformer.py", "_site_qkv", "port",
-     "the shared projections plus a site's LoRA deltas, split in heads, "
-     "one function that the prefill and the decode both call"),
-    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/transformer.py",
-     "TP_FAMILIES", "port",
-     "the hybrid is outside tensor_parallel.TP_FAMILIES: under a mesh "
-     "its SSM layers and its shared block with each site's LoRA run "
-     "whole on every model rank (ROADMAP item 13.7)"),
+     "the shared projections, each carrying a site's LoRA factors, as "
+     "the GQA attention's weights: the prefill and the decode run "
+     "attention.gqa_apply and gqa_decode over them, and so their "
+     "layouts over model"),
 ]
 
 

@@ -81,11 +81,10 @@ DIFFERENCES = [
      "whose module code computes with the rank's blocks"),
     ("models/transformer.py", "_vocab_parallel_lookup", "port",
      "tensor parallelism over model as per-rank code "
-     "(dist/tensor_parallel.py) where GSPMD splits at the anchors: the "
-     "dense, vlm and GQA MoE families' attention, MLP, vocab and cache "
-     "split, partial sums added in another order; MLA, the SSD, the "
-     "hybrid's shared block and the enc-dec run whole on every model rank "
-     "(ROADMAP item 13.7)"),
+     "(dist/tensor_parallel.py) where GSPMD splits at the anchors: every "
+     "family's attention (GQA, MLA, the hybrid's shared block, the "
+     "enc-dec's three), MLP, SSD heads, vocab and decode cache split, "
+     "partial sums added in another order"),
     ("serving/decode.py", "device", "port",
      "Server(cfg, serve_cfg, model, device=...): the server takes the "
      "port's module (its parameters inside) and runs on the card unless "

@@ -77,13 +77,13 @@ DIFFERENCES = [
      "copy_", "port",
      "mla_decode writes this token's ckv and kr at pos into the cache in "
      "place, as gqa_decode writes k and v"),
-    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/attention.py",
-     "TP_FAMILIES", "port",
-     "MLA (deepseek-v2) is outside tensor_parallel.TP_FAMILIES: under "
-     "a mesh its attention, its leading dense layer, its embedding and "
-     "its head run whole on every model rank, where GSPMD splits them "
-     "at the anchors (ROADMAP item 13.7); its routed experts split as "
-     "moe_apply_sharded splits them, and dbrx's GQA layers split"),
+    ("src/repro_torch/models/attention.py", "src/repro/models/attention.py",
+     "_mla_decode_tp", "port",
+     "MLA's absorbed decode over model reads wuk and wuv by latent rows "
+     "where the reference's serve-mode spec splits them by head columns: "
+     "a serving rank holds both whole (sharding.tp_blocks, design (a)), "
+     "its prefill takes their head columns and its decode their rows of "
+     "its latent block, so no step exchanges q_eff or ctx over model"),
 ]
 
 

@@ -64,21 +64,22 @@ DIFFERENCES = [
      "0 * inf = NaN; the port's gradients there are finite"),
     ("src/repro_torch/dist/context.py", "src/repro/dist/context.py",
      "NamedSharding", "reference",
-     "the SSD's head-parallel anchors name a layout the port does not "
-     "build: constrain returns its input (the families that split do so "
-     "in their module code), and under a mesh every model rank runs all "
-     "the heads"),
+     "the SSD's head-parallel anchors are no sharding hint: constrain "
+     "returns its input, and under a mesh whose model axis divides the "
+     "heads mamba2_apply and mamba2_decode compute this rank's heads "
+     "in their module code"),
     ("src/repro_torch/models/ssm.py", "src/repro/models/ssm.py", "copy_",
      "port",
      "mamba2_decode writes the conv ring and the SSM state into the "
      "caller's state in place and returns it, where the reference returns "
      "a new state"),
-    ("src/repro_torch/dist/tensor_parallel.py", "src/repro/models/ssm.py",
-     "TP_FAMILIES", "port",
-     "the SSD is outside tensor_parallel.TP_FAMILIES: under a mesh "
-     "every model rank runs all its heads, its embedding and its head "
-     "whole, where GSPMD splits the heads at the anchors (ROADMAP item "
-     "13.7)"),
+    ("src/repro_torch/models/ssm.py", "src/repro/models/ssm.py",
+     "_tp_projections", "port",
+     "over model the fused in_proj and the conv stay whole on every rank "
+     "behind copy_in, indexed at the rank's columns (its heads' z, x and "
+     "dt, every group's B and C), where GSPMD splits the projection's "
+     "output at the anchors: its [z | x | B | C | dt] segments are no "
+     "one block per rank"),
 ]
 
 

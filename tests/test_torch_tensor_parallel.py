@@ -42,7 +42,7 @@ test process meanwhile.  Held:
 * shape arithmetic: the layout decisions against ``_attn_constrain``'s
   and ``cache_specs``', and the serving blocks' bytes against the
   reference's serve-mode blocks; a mesh that reaches the KV-length cache
-  layout raises.
+  layout gives each rank its block of positions.
 """
 import dataclasses
 import json
@@ -676,7 +676,7 @@ def _serve_mesh(shape, r):
 def test_blocks_are_the_layouts(runs, case, monkeypatch):
     """Each serving rank holds ``tp_blocks``' blocks, cut as
     ``convert.tp_blocks_from_jax`` cuts the reference's parameters (the
-    routed experts their E / tp block), whole attention weights in the
+    routed experts' E / m among them), whole attention weights in the
     ``"rows"`` layout, and a cache block of ``cache_specs``' shape."""
     monkeypatch.setattr(ref_steps, "NamedSharding", lambda mesh, spec: spec)
     tmp = runs[0]
@@ -699,12 +699,6 @@ def test_blocks_are_the_layouts(runs, case, monkeypatch):
         want = convert.tp_blocks_from_jax(cfg, tree, mesh)
         for n, p in named.items():
             blk = got["blk." + n]
-            if "moe.w" in n:
-                e = cfg.num_experts // shape[1]
-                lo = (r % shape[1]) * e
-                np.testing.assert_array_equal(
-                    blk, want[n].numpy()[lo:lo + e], err_msg=n)
-                continue
             np.testing.assert_array_equal(blk, want[n].numpy(), err_msg=n)
             full = list(p.shape)
             if dims[n] is not None:
@@ -803,8 +797,9 @@ def _ref_attn_branch(kvh, seq, tp) -> str:
 def test_layouts_are_the_reference_anchors(arch, sizes, monkeypatch):
     """``tp_layout`` takes ``_attn_constrain``'s branch for every shape's
     sequence and ``tp_cache_layout`` the dim ``cache_specs`` puts
-    ``model`` on (none where the data axes take a batch-1 cache's
-    length), full width and ``reduced()``."""
+    ``model`` on (the KV length too where the data axes take a batch-1
+    cache's length and leave ``model`` off it), full width and
+    ``reduced()``."""
     monkeypatch.setattr(ref_steps, "NamedSharding", lambda mesh, spec: spec)
     for cfg in (get_config(arch), get_config(arch).reduced()):
         mesh = PortMesh(sizes)
@@ -820,13 +815,11 @@ def test_layouts_are_the_reference_anchors(arch, sizes, monkeypatch):
             spec = tuple(ref_steps._cache_shardings(
                 RefMesh(sizes), {"k": leaf}, b)["k"])
             on = spec.index("model") if "model" in spec else None
-            if on == 2:
-                with pytest.raises(ValueError, match="13.7"):
-                    context.tp_cache_layout(cfg, mesh, batch=b, seq=seq)
-            else:
-                assert context.tp_cache_layout(cfg, mesh, batch=b,
-                                               seq=seq) == \
-                    {3: "heads", 4: "head_dim", None: "whole"}[on], spec
+            # model off the cache only where the data axes took a batch-1
+            # cache's length: the port holds its KV-length block there
+            assert context.tp_cache_layout(cfg, mesh) == \
+                {3: "heads", 4: "head_dim", 2: "length",
+                 None: "length"}[on], spec
 
 
 @pytest.mark.parametrize("sizes", TEST_MESHES, ids=_mesh_id)
@@ -856,17 +849,16 @@ def test_serving_block_bytes_are_the_reference_blocks(arch, sizes):
 
 def test_length_cache_layout_raises():
     """A mesh whose ``model`` axis neither the KV heads nor ``head_dim``
-    divides reaches the reference's KV-length cache layout, which the
-    port refuses by name rather than run whole."""
+    divides reaches the reference's KV-length cache layout: nothing
+    raises, and each rank holds its block of ``ceil(S / m)`` positions,
+    also where the axis does not divide the length (the reference leaves
+    ``model`` off such a cache)."""
     cfg = get_config("minicpm-2b").reduced()          # 4 KV heads, hd 32
     mesh = PortMesh({"data": 1, "model": 3})
-    with pytest.raises(ValueError, match="13.7"):
-        context.tp_cache_layout(cfg, mesh, batch=2, seq=9)
-    with pytest.raises(ValueError, match="13.7"):
-        transformer.init_cache(cfg, 2, 9, mesh=mesh, device="meta")
-    # a length that does not divide the axis: the reference leaves model
-    # off the cache, and so does the port
+    assert context.tp_cache_layout(cfg, mesh) == "length"
+    assert transformer.init_cache(cfg, 2, 9, mesh=mesh, device="meta")[
+        "k"].shape == (cfg.num_layers, 2, 3, 4, 32)
     assert transformer.init_cache(cfg, 2, 8, mesh=mesh, device="meta")[
-        "k"].shape == (cfg.num_layers, 2, 8, 4, 32)
+        "k"].shape == (cfg.num_layers, 2, 3, 4, 32)
     assert context.tp_cache_layout(
-        cfg, PortMesh({"data": 1, "model": 2}), batch=2, seq=9) == "heads"
+        cfg, PortMesh({"data": 1, "model": 2})) == "heads"
