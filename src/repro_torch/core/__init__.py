@@ -11,7 +11,7 @@ from .mttkrp import (DEFAULT_COPIES, KERNELS, DeviceBLCO, choose_resolution,
                      launch_mttkrp_impl, mttkrp, mttkrp_dense_oracle,
                      mttkrp_per_launch, validate_kernel)
 from .launches import LaunchCache, launch_cache_bytes, stacked_mttkrp
-from .counters import dispatch_count
+from .counters import dispatch_count, host_sync_counts
 from .baselines import (COOFormat, CSFFormat, FCOOFormat, coo_mttkrp,
                         csf_mttkrp, fcoo_mttkrp)
 from .cp_als import (CPResult, CPState, as_mttkrp_fn, cp_als, cp_als_init,
@@ -31,6 +31,7 @@ __all__ = [
     "validate_kernel", "launch_cache_for", "clear_launch_cache", "mttkrp",
     "mttkrp_per_launch",
     "LaunchCache", "launch_cache_bytes", "stacked_mttkrp", "dispatch_count",
+    "host_sync_counts",
     "COOFormat", "coo_mttkrp", "FCOOFormat", "fcoo_mttkrp",
     "CSFFormat", "csf_mttkrp",
     "CPResult", "CPState", "as_mttkrp_fn", "cp_als", "cp_als_init",

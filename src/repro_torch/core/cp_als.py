@@ -13,6 +13,14 @@ over the stepper, so both are numerically identical.
 The Gram products and the pseudo-inverse are small dense (R, R) work and
 stay ``torch.matmul``/``torch.linalg``.  ``pinv`` is called with the JAX
 package's cut-off (``10 * max(R, R) * eps``), not PyTorch's default.
+
+A sweep records spans on the track ``cp_als`` (``repro_torch.obs.trace``,
+no-ops while tracing is off): ``cp_als.sweep`` around the sweep, holding
+per mode the plan's ``plan.mttkrp`` and ``cp_als.update`` (with
+``cp_als.pinv`` inside), then ``cp_als.fit`` through the fit's readback.
+The host's waits on the card, ``pinv``'s two (its SVD's copy to the host
+and its status read) and the fit's readback, are counted by
+``counters.record_host_sync``.
 """
 from __future__ import annotations
 
@@ -21,6 +29,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as obs_trace
+
+from .counters import record_host_sync
 from .device import DEFAULT_DEVICE, resolve_device
 
 
@@ -103,11 +114,18 @@ def cp_als_init(dims, rank, *, norm_x: float, tol: float = 1e-5,
 # on the card torch.linalg.pinv reads cuSOLVER's status on the host (the
 # sync debug mode refuses it): one (R, R) solve per mode update, after the
 # plan has fenced its MTTKRP; a status-free pseudo-inverse would change
-# the reference's numerics
+# the reference's numerics.  Its SVD waits on the card twice: a copy to the
+# host inside ``_linalg_svd`` and ``_linalg_check_errors``' status read
+PINV_HOST_SYNCS = 2
+
+
 def _pinv(v):  # repro-lint: disable=trace-host-callback
     rtol = 10 * max(v.shape) * torch.finfo(v.dtype).eps
     try:
-        return torch.linalg.pinv(v, rtol=rtol)
+        with obs_trace.span("cp_als.pinv", "cp_als"):
+            if v.is_cuda:
+                record_host_sync("cp_als.pinv", PINV_HOST_SYNCS)
+            return torch.linalg.pinv(v, rtol=rtol)
     except torch.linalg.LinAlgError:
         # the SVD of a matrix with NaN/Inf entries does not converge: give
         # NaN, as the JAX package's pinv does, so poisoned factors end in
@@ -150,23 +168,30 @@ def cp_als_step(mttkrp_fn, state: CPState) -> CPState:
     rank = state.rank
     factors, grams = state.factors, state.grams
     m_mat = None
-    for n in range(n_modes):
-        m_mat = mttkrp_fn(factors, n)                    # line 4
-        factors[n], lam, grams[n] = sweep_mode_update(m_mat, grams, n)
-        state.lam = lam
+    with obs_trace.span("cp_als.sweep", "cp_als", iteration=state.iteration):
+        for n in range(n_modes):
+            m_mat = mttkrp_fn(factors, n)                    # line 4
+            with obs_trace.span("cp_als.update", "cp_als", mode=n):
+                factors[n], lam, grams[n] = sweep_mode_update(m_mat, grams, n)
+            state.lam = lam
 
-    # fit = 1 - ||X - X_hat||_F / ||X||_F, computed without materializing
-    # X_hat (standard CP-ALS identity; m_mat is the last mode's MTTKRP).
-    last = n_modes - 1
-    g = grams[0]
-    v_all = torch.ones((rank, rank), dtype=g.dtype, device=g.device)
-    for m in range(n_modes):
-        v_all = v_all * grams[m]
-    norm_est_sq = state.lam @ (v_all @ state.lam)
-    inner = torch.sum(state.lam * torch.sum(m_mat * factors[last], dim=0))
-    resid_sq = torch.clamp(state.norm_x ** 2 + norm_est_sq - 2.0 * inner,
-                           min=0.0)
-    fit = float(1.0 - torch.sqrt(resid_sq) / state.norm_x)
+        # fit = 1 - ||X - X_hat||_F / ||X||_F, computed without materializing
+        # X_hat (standard CP-ALS identity; m_mat is the last mode's MTTKRP).
+        with obs_trace.span("cp_als.fit", "cp_als"):
+            last = n_modes - 1
+            g = grams[0]
+            v_all = torch.ones((rank, rank), dtype=g.dtype, device=g.device)
+            for m in range(n_modes):
+                v_all = v_all * grams[m]
+            norm_est_sq = state.lam @ (v_all @ state.lam)
+            inner = torch.sum(state.lam * torch.sum(m_mat * factors[last],
+                                                    dim=0))
+            resid_sq = torch.clamp(
+                state.norm_x ** 2 + norm_est_sq - 2.0 * inner, min=0.0)
+            fit = 1.0 - torch.sqrt(resid_sq) / state.norm_x
+            if fit.is_cuda:
+                record_host_sync("cp_als.fit")
+            fit = float(fit)
     state.fits.append(fit)
     state.iteration += 1
     if abs(fit - state.prev_fit) < state.tol:

@@ -265,14 +265,23 @@ class DeviceBLCO:
         return self.cache.device_bytes()
 
     def mttkrp(self, factors, mode: int, *, resolution: str = "auto",
-               copies: int = DEFAULT_COPIES, kernel: str | None = None):
+               copies: int = DEFAULT_COPIES, kernel: str | None = None,
+               events=None):
+        """The mode-``mode`` MTTKRP.  ``events``, a pair of timing CUDA
+        events, bracket the call's device work on the current stream: the
+        fused kernel alone, or the plain path's whole issue."""
         kernel = validate_kernel(kernel if kernel is not None else self.kernel)
         if kernel == "cuda":
             from repro_torch.kernels.fused import fused_cache_mttkrp
             return fused_cache_mttkrp(self.cache, factors, mode,
-                                      resolution=resolution)
-        return self.cache.mttkrp(factors, mode, resolution=resolution,
-                                 copies=copies)
+                                      resolution=resolution, events=events)
+        if events is not None:
+            events[0].record()
+        out = self.cache.mttkrp(factors, mode, resolution=resolution,
+                                copies=copies)
+        if events is not None:
+            events[1].record()
+        return out
 
     def delete(self) -> None:
         """Release the device buffers (the cache must not be used after)."""

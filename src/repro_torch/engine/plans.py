@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import baselines
 from repro_torch.core.blco import BLCOTensor, decode_coords
-from repro_torch.core.counters import dispatch_count
+from repro_torch.core.counters import dispatch_count, record_host_sync
 from repro_torch.core.device import DEFAULT_DEVICE
 from repro_torch.core.distributed import (axis_size, make_distributed_mttkrp,
                                           shard_slots, slot_bytes)
@@ -71,6 +71,9 @@ class InMemoryPlan:
         self._dev: DeviceBLCO | None = resident if resident is not None \
             else DeviceBLCO(blco, kernel=kernel, device=device)
         self._stats = EngineStats(backend=self.backend)
+        # the traced calls' timing events, made at the first traced call on
+        # a card and reused: each call reads them after its own fence
+        self._events = None
         # kept for the analytic device-traffic model the ledger attributes
         self._nnz = blco.nnz
         self._order = blco.order
@@ -96,28 +99,41 @@ class InMemoryPlan:
                copies: int | None = None):
         dev = self.resident
         with obs_trace.span("plan.mttkrp", "plan", backend=self.backend,
-                            mode=mode):
+                            mode=mode) as sp:
+            # traced on a card: the call's device time by CUDA events
+            # (``DeviceBLCO.mttkrp``), read after the fence, no wait added
+            events = None
+            if obs_trace.TRACING.enabled and dev.device.type == "cuda":
+                if self._events is None:
+                    self._events = (torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+                events = self._events
             c0 = dispatch_count()
             t0 = time.perf_counter()
             out = dev.mttkrp(
                 factors, mode, kernel=self.kernel,
                 resolution=resolution if resolution is not None
                 else self.resolution,
-                copies=copies if copies is not None else self.copies)
+                copies=copies if copies is not None else self.copies,
+                events=events)
             # host wall time of the (asynchronous) issue vs the fenced span
             t1 = time.perf_counter()
             self._stats.dispatch_time_s += t1 - t0
             self._stats.hist.dispatch_s.record(t1 - t0)
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)
+                record_host_sync("plan.fence")
             t2 = time.perf_counter()
+            launched = dispatch_count() - c0
             self._stats.device_time_s += t2 - t0
             self._stats.total_time_s += t2 - t0
             self._stats.mttkrp_calls += 1
-            self._stats.launches += dispatch_count() - c0
+            self._stats.launches += launched
             if obs_trace.TRACING.enabled:
                 obs_trace.add_event("device.fence", "device", t0, t2,
                                     backend=self.backend)
+                if events is not None and launched:
+                    sp.set(device_ms=events[0].elapsed_time(events[1]))
             if obs_ledger.LEDGER.enabled:
                 # fenced seconds (same t2 - t0 window as device_time_s);
                 # HBM bytes attributed from the per-kernel model

@@ -64,7 +64,7 @@ def _bind_fused(lib: ctypes.CDLL) -> None:
     lib.fused_mttkrp_launch.argtypes = [
         _I, _I, _VP, _VP, _VP, _VP, ctypes.POINTER(_VP), _I, _I,
         ctypes.POINTER(_I), ctypes.POINTER(_I), _LL, _I, _I, _I, _LL, _VP,
-        _VP, _VP]
+        _VP, _VP, _VP]
     lib.fused_mttkrp_launch.restype = _I
     lib.fused_mttkrp_occupancy.argtypes = [
         _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),

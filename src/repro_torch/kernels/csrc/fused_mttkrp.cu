@@ -382,6 +382,7 @@ struct Call {
   void* next;
   void* out;
   cudaStream_t stream;
+  cudaEvent_t start;        // recorded just before the kernel, or null
   int smem;                 // query: K2's dynamic shared memory
   int* blocks_per_sm;       // query: out
   int* batch;               // query: out
@@ -411,6 +412,10 @@ static cudaError_t run(const Call& c) {
   const int32_t* b = static_cast<const int32_t*>(c.bases);
   OT* o = static_cast<OT*>(c.out);
   unsigned long long* next = static_cast<unsigned long long*>(c.next);
+  if (c.start) {
+    const cudaError_t err = cudaEventRecord(c.start, c.stream);
+    if (err != cudaSuccess) return err;
+  }
   if (c.variant == 0) {
     segment_kernel<VT, FT, OT, NM><<<c.blocks, THREADS, 0, c.stream>>>(
         h, l, v, b, f, c.fl, c.T, c.R, c.chunk, next, o);
@@ -463,7 +468,8 @@ int fused_mttkrp_launch(int variant, int dtype_pair, const void* hi,
                         const void* const* factors, int n_modes, int mode,
                         const int* shifts, const int* widths, long long T,
                         int R, int out_rows, int blocks, long long chunk,
-                        void* next, void* out, void* stream) {
+                        void* next, void* out, void* stream,
+                        void* start_event) {
   if (n_modes < 1 || n_modes > MAX_ORDER || mode < 0 || mode >= n_modes ||
       R < 1 || T < 0 || out_rows < 1 || (variant != 0 && variant != 1) ||
       blocks < 1 || chunk < 32 || chunk % 32 || next == nullptr)
@@ -495,6 +501,7 @@ int fused_mttkrp_launch(int variant, int dtype_pair, const void* hi,
   c.next = next;
   c.out = out;
   c.stream = static_cast<cudaStream_t>(stream);
+  c.start = static_cast<cudaEvent_t>(start_event);
   return (int)by_pair(dtype_pair, c);
 }
 

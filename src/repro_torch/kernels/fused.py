@@ -170,11 +170,15 @@ def kernel_geometry(variant: str, vals_dtype, factor_dtype, n_modes: int,
 
 
 def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
-            field_shifts, mode, out_rows, out_dtype, layout=None):
+            field_shifts, mode, out_rows, out_dtype, layout=None,
+            events=None):
     """Launch one kernel on the tensors' card and return its output.
 
     ``layout`` = ``(blocks, chunk)`` replaces the one-wave geometry; the
-    tests pin piece edges with it."""
+    tests pin piece edges with it.  ``events``, a pair of timing CUDA
+    events, are recorded on the launch's stream around the kernel, the
+    first again by the library just before the launch, so their elapsed
+    time is the kernel's and its launch latency, not the host's issue."""
     from .build import load_library
     lib = load_library("fused_mttkrp").lib
     n = len(field_bits)
@@ -194,13 +198,21 @@ def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
     shifts = (ctypes.c_int * n)(*field_shifts)
     widths = (ctypes.c_int * n)(*field_bits)
     with torch.cuda.device(hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        current = torch.cuda.current_stream()
+        start = None
+        if events is not None:
+            # recording here makes the event on its first use; the library
+            # records it again just before the launch
+            events[0].record(current)
+            start = events[0].cuda_event
         err = lib.fused_mttkrp_launch(
             VARIANTS.index(variant), DTYPE_PAIRS[(vals.dtype,
                                                  factors[0].dtype)],
             hi.data_ptr(), lo.data_ptr(), vals.data_ptr(), bases.data_ptr(),
             ptrs, n, mode, shifts, widths, t, rank, out_rows, blocks, chunk,
-            pieces.data_ptr(), out.data_ptr(), stream)
+            pieces.data_ptr(), out.data_ptr(), current.cuda_stream, start)
+        if events is not None:
+            events[1].record(current)
     raise_on_error(err, lib.fused_mttkrp_error_string,
                    f"fused MTTKRP {variant}")
     launch_counts[variant] += 1
@@ -209,14 +221,14 @@ def _launch(variant, hi, lo, vals, bases, factors, *, field_bits,
 
 def fused_mttkrp_flat(hi, lo, vals, bases, factors, *, field_bits: tuple,
                       field_shifts: tuple, mode: int, out_rows: int,
-                      resolution: str = "auto"):
+                      resolution: str = "auto", events=None):
     """Fused MTTKRP over a flat reservation-padded non-zero stream.
 
     hi/lo: (T,) uint32; vals: (T,); bases: (T, N) int32; factors: N (I_n, R)
     tensors.  Returns (out_rows, R) at ``promote_types(vals, factors)``.
-    On the card: exactly one kernel launch.  On the CPU: the plain version,
-    whose segment tile is the reference's (the largest divisor of T up to
-    256).
+    On the card: exactly one kernel launch, bracketed by ``events`` where
+    given (see ``_launch``).  On the CPU: the plain version, whose segment
+    tile is the reference's (the largest divisor of T up to 256).
     """
     factors = tuple(factors)
     device = one_device(hi, lo, vals, bases, *factors)
@@ -235,7 +247,8 @@ def fused_mttkrp_flat(hi, lo, vals, bases, factors, *, field_bits: tuple,
                       mode)
         return _launch(variant, hi, lo, vals, bases, factors,
                        field_bits=field_bits, field_shifts=field_shifts,
-                       mode=mode, out_rows=out_rows, out_dtype=out_dtype)
+                       mode=mode, out_rows=out_rows, out_dtype=out_dtype,
+                       events=events)
     if device.type != "cpu":
         raise ValueError(f"no kernel for device {device}")
     if variant == "stash":
@@ -250,7 +263,7 @@ def fused_mttkrp_flat(hi, lo, vals, bases, factors, *, field_bits: tuple,
 
 
 def fused_cache_mttkrp(cache, factors, mode: int, *,
-                       resolution: str = "auto"):
+                       resolution: str = "auto", events=None):
     """Fused MTTKRP straight from a device-resident ``LaunchCache``: the
     stacked launches are one flat stream (views, no copy), one launch per
     call regardless of the launch count."""
@@ -268,4 +281,4 @@ def fused_cache_mttkrp(cache, factors, mode: int, *,
                              field_bits=cache.re_fields,
                              field_shifts=cache.re_shifts, mode=mode,
                              out_rows=cache.dims[mode],
-                             resolution=resolution)
+                             resolution=resolution, events=events)

@@ -9,19 +9,27 @@ module records that timeline as **spans**: named intervals on a *track*
 / ``device`` / ``plan``), each carrying attributes like ``nnz``,
 ``launch``, ``bytes``.  The port's copy of ``repro.obs.trace``; the port
 records ``plan.mttkrp``, ``engine.plan_for``, ``engine.demote``,
-``store.read`` and ``retry.attempt``.
+``store.read``, ``retry.attempt`` and the CP-ALS sweep's ``cp_als.sweep``,
+``cp_als.update``, ``cp_als.pinv`` and ``cp_als.fit``.
 
 Two recording APIs:
 
 * :func:`span` — a context manager for code whose interval the tracer
-  itself measures (plan ``mttkrp`` calls, ``plan_for``).  Nesting is
-  tracked through a :mod:`contextvars` variable, so a child span records
-  its parent's name; contexts are per-thread, so spans emitted on one
-  thread nest only under spans that thread opened.
+  itself measures (plan ``mttkrp`` calls, ``plan_for``, the CP-ALS
+  sweep's ``cp_als.*`` spans).  Nesting is tracked through a
+  :mod:`contextvars` variable, so a child span records its parent's name;
+  contexts are per-thread, so spans emitted on one thread nest only under
+  spans that thread opened.  While a ``torch.profiler`` is recording, such
+  a span also enters a ``record_function`` of its name, so the profiler's
+  trace holds the program's spans on its own clock: a kernel is matched to
+  the span whose host code launched it (by correlation id), an idle gap of
+  the card to the span the host was in.
 * :func:`add_event` — records an interval the caller ALREADY measured
   (the streaming hot loop times every put/dispatch for ``EngineStats``
   anyway; tracing reuses those exact timestamps, so span sums and stats
-  totals agree by construction).
+  totals agree by construction).  They are measured after the fact, so
+  they never reach the profiler's trace (``device.fence``, ``h2d.put``,
+  ``dispatch.launch``, ``store.read`` are on this module's clock only).
 
 Zero-cost when disabled: recording is gated on one module-level flag
 (``TRACING.enabled``), :func:`span` returns a shared no-op singleton, and
@@ -134,11 +142,38 @@ def span(name: str, track: str = "main", **attrs):
     """Context manager recording ``name`` on ``track`` while entered.
 
     Returns the shared no-op singleton when tracing is disabled — one flag
-    check, no allocation beyond the call's own kwargs.
+    check, no allocation beyond the call's own kwargs, no ``torch`` call.
+    While tracing is on and a ``torch.profiler`` records, the span is
+    mirrored into the profiler's trace (:class:`_ProfiledSpan`).
     """
     if not TRACING.enabled:
         return _NULL
+    import torch
+    if torch._C._autograd._profiler_enabled():
+        return _ProfiledSpan(Span(name, track, attrs),
+                             torch.profiler.record_function(name))
     return Span(name, track, attrs)
+
+
+class _ProfiledSpan:
+    """A span that also enters ``mirror``, a ``torch.profiler``
+    ``record_function`` of its name, while it is entered; ``with`` yields
+    the span itself."""
+
+    __slots__ = ("span", "mirror")
+
+    def __init__(self, s: Span, mirror):
+        self.span = s
+        self.mirror = mirror
+
+    def __enter__(self) -> Span:
+        self.span.__enter__()
+        self.mirror.__enter__()
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        self.mirror.__exit__(*exc)
+        return self.span.__exit__(*exc)
 
 
 def add_event(name: str, track: str, start_s: float, end_s: float,
